@@ -1,0 +1,255 @@
+"""Score-estimator U-Net and the Euler sampler of the reverse ODE.
+
+Counterpart of gradtts_tpu/models/diffusion.py (``GradLogPEstimator2d``
+:496, ``ResnetBlock`` :283, ``Block`` :251, ``LinearAttention`` + ``Rezero``
+:351-493, ``SinusoidalPosEmb`` :133, ``get_noise`` :125,
+``reverse_diffusion`` :662), without the TPU layout tricks (frequency
+folding and its kernel rearrangements): those are exact re-layouts of the
+math computed here.
+
+Activations are NCHW tensors [B, C, F, T] in ``torch.channels_last``
+memory format, so cuDNN's convolutions and the hand kernels share one
+layout: ``h.permute(0, 2, 3, 1)`` is a contiguous [B, F, T, C] view, which
+the kernels read as [B, N = F*T, C] without a copy. Every ``Block`` ends in
+the GroupNorm+Mish kernel (K1) and every attention is the linear-attention
+kernel pair (K2 + K3). Parameter names follow the reference torch
+``state_dict`` (``downs.0.2.fn.fn.to_qkv.weight``, ...).
+"""
+
+import math
+
+import torch
+from torch import nn
+
+from gradtts_tpu_torch.models.layers import mish
+from gradtts_tpu_torch.ops.groupnorm_mish import groupnorm_mish
+from gradtts_tpu_torch.ops.linear_attention import linear_attention_rezero
+
+CL = torch.channels_last
+
+
+def get_noise(t, beta_init, beta_term, cumulative=False):
+    """Linear beta schedule; ``cumulative`` gives its integral."""
+    if cumulative:
+        return beta_init * t + 0.5 * (beta_term - beta_init) * (t ** 2)
+    return beta_init + (beta_term - beta_init) * t
+
+
+class Mish(nn.Module):
+    def forward(self, x):
+        return mish(x)
+
+
+class SinusoidalPosEmb(nn.Module):
+    def __init__(self, dim: int):
+        super().__init__()
+        self.dim = dim
+
+    def forward(self, t, scale: float = 1000.0):
+        half = self.dim // 2
+        step = math.log(10000) / (half - 1)
+        freqs = torch.exp(torch.arange(half, dtype=torch.float32,
+                                       device=t.device) * -step)
+        emb = scale * t[:, None].float() * freqs[None, :]
+        return torch.cat([emb.sin(), emb.cos()], dim=-1)
+
+
+class Block(nn.Module):
+    """conv3x3 -> masked GroupNorm + Mish (kernel K1); ``block.0`` is the
+    conv and ``block.1`` holds the norm's f32 affine parameters."""
+
+    def __init__(self, dim: int, dim_out: int, groups: int = 8):
+        super().__init__()
+        self.block = nn.ModuleList([nn.Conv2d(dim, dim_out, 3, padding=1),
+                                    nn.GroupNorm(groups, dim_out)])
+
+    def forward(self, x, mask):
+        """x [B, C, F, T] channels_last; mask [B, 1, 1, T] in x's dtype."""
+        conv, norm = self.block
+        h = conv(x * mask).contiguous(memory_format=CL)
+        b, _, _, t = mask.shape
+        y = groupnorm_mish(h.permute(0, 2, 3, 1), mask.view(b, 1, t, 1),
+                           norm.weight, norm.bias, norm.num_groups, norm.eps)
+        return y.permute(0, 3, 1, 2)
+
+
+class ResnetBlock(nn.Module):
+    """Two Blocks with a time-embedding injection and a residual conv."""
+
+    def __init__(self, dim: int, dim_out: int, time_emb_dim: int,
+                 groups: int = 8):
+        super().__init__()
+        self.mlp = nn.Sequential(Mish(), nn.Linear(time_emb_dim, dim_out))
+        self.block1 = Block(dim, dim_out, groups)
+        self.block2 = Block(dim_out, dim_out, groups)
+        self.res_conv = nn.Conv2d(dim, dim_out, 1) if dim != dim_out \
+            else nn.Identity()
+
+    def forward(self, x, mask, time_emb):
+        h = self.block1(x, mask)
+        h = h + self.mlp(time_emb)[:, :, None, None].to(h.dtype)
+        h = self.block2(h, mask)
+        return h + self.res_conv(x * mask)
+
+
+class LinearAttention(nn.Module):
+    """Softmax-kernel linear attention over all (F, T) positions; holds the
+    reference's ``to_qkv`` (channel order (qkv, heads, dim_head)) and
+    ``to_out`` 1x1 convs."""
+
+    def __init__(self, dim: int, heads: int = 4, dim_head: int = 32):
+        super().__init__()
+        self.heads, self.dim_head = heads, dim_head
+        hidden = heads * dim_head
+        self.to_qkv = nn.Conv2d(dim, hidden * 3, 1, bias=False)
+        self.to_out = nn.Conv2d(hidden, dim, 1)
+
+
+class Rezero(nn.Module):
+    """The ReZero gain ``g`` around the attention ``fn``."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.fn = LinearAttention(dim)
+        self.g = nn.Parameter(torch.zeros(1))
+
+
+class Residual(nn.Module):
+    """x + g * attention(x), the reference's Residual(Rezero(
+    LinearAttention)), computed in one call of K2 + K3 with the output
+    projection, the gain and the residual folded in."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.fn = Rezero(dim)
+
+    def forward(self, x):
+        """x [B, C, F, T] channels_last."""
+        attn = self.fn.fn
+        hidden = attn.heads * attn.dim_head
+        c = x.shape[1]
+        w = attn.to_qkv.weight.view(3 * hidden, c).t()          # [C, 3H]
+        y = linear_attention_rezero(
+            x.contiguous(memory_format=CL).permute(0, 2, 3, 1),
+            w[:, :hidden], w[:, hidden:2 * hidden], w[:, 2 * hidden:],
+            attn.to_out.weight.view(c, hidden).t(), attn.to_out.bias,
+            self.fn.g, attn.dim_head)
+        return y.permute(0, 3, 1, 2)
+
+
+class Downsample(nn.Module):
+    def __init__(self, dim: int):
+        super().__init__()
+        self.conv = nn.Conv2d(dim, dim, 3, 2, 1)
+
+    def forward(self, x):
+        return self.conv(x)
+
+
+class Upsample(nn.Module):
+    def __init__(self, dim: int):
+        super().__init__()
+        self.conv = nn.ConvTranspose2d(dim, dim, 4, 2, 1)
+
+    def forward(self, x):
+        return self.conv(x)
+
+
+class GradLogPEstimator2d(nn.Module):
+    """U-Net over (F, T) with [mu, x_t] as input channels (single speaker).
+
+    Interface as in the JAX package: x, mu [B, T, F]; mask [B, T]; t [B];
+    returns [B, T, F] in f32. Runs in the dtype of its convolution weights
+    (``models.tts.set_compute_dtype``); the time MLPs and the GroupNorm
+    parameters stay f32."""
+
+    def __init__(self, dim: int, dim_mults=(1, 2, 4), groups: int = 8,
+                 n_feats: int = 80, pe_scale: float = 1000.0):
+        super().__init__()
+        self.pe_scale = pe_scale
+        self.time_pos_emb = SinusoidalPosEmb(dim)
+        self.mlp = nn.Sequential(nn.Linear(dim, dim * 4), Mish(),
+                                 nn.Linear(dim * 4, dim))
+        dims = [2] + [dim * m for m in dim_mults]
+        in_out = list(zip(dims[:-1], dims[1:]))
+        self.downs = nn.ModuleList()
+        for ind, (dim_in, dim_out) in enumerate(in_out):
+            last = ind == len(in_out) - 1
+            self.downs.append(nn.ModuleList([
+                ResnetBlock(dim_in, dim_out, dim, groups),
+                ResnetBlock(dim_out, dim_out, dim, groups),
+                Residual(dim_out),
+                nn.Identity() if last else Downsample(dim_out)]))
+        mid = dims[-1]
+        self.mid_block1 = ResnetBlock(mid, mid, dim, groups)
+        self.mid_attn = Residual(mid)
+        self.mid_block2 = ResnetBlock(mid, mid, dim, groups)
+        self.ups = nn.ModuleList()
+        for dim_in, dim_out in reversed(in_out[1:]):
+            self.ups.append(nn.ModuleList([
+                ResnetBlock(dim_out * 2, dim_in, dim, groups),
+                ResnetBlock(dim_in, dim_in, dim, groups),
+                Residual(dim_in),
+                Upsample(dim_in)]))
+        self.final_block = Block(dim, dim, groups)
+        self.final_conv = nn.Conv2d(dim, 1, 1)
+
+    def forward(self, x, mask, mu, t):
+        dtype = self.final_conv.weight.dtype
+        t_emb = self.mlp(self.time_pos_emb(t, scale=self.pe_scale))
+        h = torch.stack([mu.transpose(1, 2), x.transpose(1, 2)], dim=1)
+        h = h.to(dtype).contiguous(memory_format=CL)            # [B, 2, F, T]
+        m = mask[:, None, None, :].to(dtype)                    # [B, 1, 1, T]
+
+        hiddens, masks = [], [m]
+        for res1, res2, attn, down in self.downs:
+            mask_down = masks[-1]
+            h = res1(h, mask_down, t_emb)
+            h = res2(h, mask_down, t_emb)
+            h = attn(h)
+            hiddens.append(h)
+            h = down(h * mask_down)
+            masks.append(mask_down[:, :, :, ::2].contiguous())
+        masks = masks[:-1]
+        mask_mid = masks[-1]
+        h = self.mid_block1(h, mask_mid, t_emb)
+        h = self.mid_attn(h)
+        h = self.mid_block2(h, mask_mid, t_emb)
+        for res1, res2, attn, up in self.ups:
+            mask_up = masks.pop()
+            h = torch.cat([h, hiddens.pop()], dim=1)
+            h = res1(h, mask_up, t_emb)
+            h = res2(h, mask_up, t_emb)
+            h = attn(h)
+            h = up(h * mask_up)
+        h = self.final_block(h, m)
+        out = (self.final_conv(h * m) * m).float()              # [B, 1, F, T]
+        return out[:, 0].transpose(1, 2)
+
+
+class Diffusion(nn.Module):
+    """Holds the estimator under the reference's ``decoder.estimator``."""
+
+    def __init__(self, n_feats: int, dim: int, beta_min: float,
+                 beta_max: float, pe_scale: float):
+        super().__init__()
+        self.beta_min, self.beta_max = beta_min, beta_max
+        self.estimator = GradLogPEstimator2d(dim, n_feats=n_feats,
+                                             pe_scale=pe_scale)
+
+
+def reverse_diffusion(estimator, z, mask, mu, n_timesteps: int, beta_min,
+                      beta_max):
+    """Euler steps of the probability-flow ODE (``reverse_diffusion`` :662,
+    ODE branch). z, mu [B, T, F]; mask [B, T, 1]."""
+    h = 1.0 / n_timesteps
+    xt = z * mask
+    for i in range(n_timesteps):
+        step = torch.full((z.shape[0],), float(i), dtype=z.dtype,
+                          device=z.device)
+        t = 1.0 - (step + 0.5) * h
+        noise_t = get_noise(t[:, None, None], beta_min, beta_max)
+        score = estimator(xt, mask[..., 0], mu, t)
+        dxt = 0.5 * (mu - xt - score) * noise_t * h
+        xt = (xt - dxt) * mask
+    return xt

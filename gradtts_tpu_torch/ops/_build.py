@@ -1,0 +1,141 @@
+"""Builds the port's CUDA kernels with nvcc and loads them with ctypes.
+
+Every ``csrc/<name>.cu`` is compiled on its own into a shared library with a
+plain C interface (no PyTorch headers, so a build takes seconds):
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+         -Xcompiler -fPIC -Xptxas -v -o <lib> csrc/<name>.cu
+
+The library lands in ``build/gradtts_tpu_torch/`` at the root of the
+checkout, named by a hash of the sources and flags, so an edited kernel is
+rebuilt and an unchanged one is reused. nvcc writes a temporary file that is
+renamed into place, so two processes building at once never load a half
+written library. Nothing is built when this module is imported: a kernel's
+library is built by its first launch, or by :func:`build` for all of them
+at once (one nvcc process per source, all started together).
+"""
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+
+import torch
+
+PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(PACKAGE_DIR, 'csrc')
+BUILD_DIR = os.path.join(os.path.dirname(PACKAGE_DIR), 'build',
+                         'gradtts_tpu_torch')
+
+NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
+              '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+
+# dtype codes of the C entry points (csrc/common.cuh: kFloat32, kBFloat16)
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+# argtypes of every C entry point, by library
+SIGNATURES = {
+    'groupnorm_mish': {
+        # x, part, B, N, C, chunk, tiles, dtype, stream
+        'gtt_gn_stats': (_P, _P, _I, _I, _I, _I, _I, _I, _P),
+        # x, mask, part, gamma, beta, out, B, N, T, C, chunk, tiles,
+        # groups, eps, dtype, stream
+        'gtt_gn_apply': (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                         _I, _F, _I, _P),
+    },
+    'linear_attention': {
+        # x, wk, wv, m, ctx, den, B, N, C, chunk, S, dtype, stream
+        'gtt_la_stats': (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                         _P),
+        # x, wq, ctx2, bias, out, B, N, C, chunk, S, dtype, stream
+        'gtt_la_apply': (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    },
+}
+
+_loaded = {}
+
+
+def _nvcc() -> str:
+    home = os.environ.get('CUDA_HOME') or os.environ.get('CUDA_PATH')
+    for cand in ([os.path.join(home, 'bin', 'nvcc')] if home else []) + [
+            shutil.which('nvcc') or '', '/usr/local/cuda/bin/nvcc']:
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError('nvcc not found: the CUDA kernels of gradtts_tpu_torch '
+                       'are built with the CUDA toolkit (set CUDA_HOME)')
+
+
+def library_path(name: str) -> str:
+    """Path of the library built from ``csrc/<name>.cu`` at its current
+    sources and flags."""
+    h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+    for path in [os.path.join(CSRC_DIR, f'{name}.cu')] + sorted(
+            glob.glob(os.path.join(CSRC_DIR, '*.cuh'))):
+        with open(path, 'rb') as f:
+            h.update(os.path.basename(path).encode() + b'\0' + f.read())
+    return os.path.join(BUILD_DIR, f'{name}-{h.hexdigest()[:16]}.so')
+
+
+def build(names=None) -> dict:
+    """Builds the named libraries (default: all) that are not built yet, one
+    nvcc process per source, all at once. Returns ``{name: {'seconds': s,
+    'log': nvcc's output}}`` for those it built; raises if any build fails."""
+    names = list(SIGNATURES) if names is None else list(names)
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    jobs = {}
+    for name in names:
+        out = library_path(name)
+        if os.path.exists(out):
+            continue
+        fd, tmp = tempfile.mkstemp(suffix='.so', dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [_nvcc(), *NVCC_FLAGS, '-o', tmp,
+               os.path.join(CSRC_DIR, f'{name}.cu')]
+        jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True),
+                      tmp, out, time.perf_counter())
+    report, failed = {}, []
+    for name, (proc, tmp, out, t0) in jobs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failed.append(f'{name}: nvcc exited {proc.returncode}\n{log}')
+            continue
+        os.replace(tmp, out)
+        report[name] = {'seconds': time.perf_counter() - t0, 'log': log}
+    if failed:
+        raise RuntimeError('kernel build failed:\n' + '\n'.join(failed))
+    return report
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The ctypes handle of ``csrc/<name>.cu``'s library, built on first use."""
+    lib = _loaded.get(name)
+    if lib is None:
+        build([name])
+        lib = ctypes.CDLL(library_path(name))
+        for fn, argtypes in SIGNATURES[name].items():
+            getattr(lib, fn).argtypes = list(argtypes)
+            getattr(lib, fn).restype = ctypes.c_int
+        lib.gtt_error_string.argtypes = [ctypes.c_int]
+        lib.gtt_error_string.restype = ctypes.c_char_p
+        _loaded[name] = lib
+    return lib
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raises if a C entry point returned a CUDA error."""
+    if err != 0:
+        msg = lib.gtt_error_string(err).decode()
+        raise RuntimeError(f'{what}: CUDA error {err} ({msg})')
+
+
+def stream_of(t: torch.Tensor) -> int:
+    """PyTorch's current stream on ``t``'s device, as the kernels take it."""
+    return torch.cuda.current_stream(t.device).cuda_stream

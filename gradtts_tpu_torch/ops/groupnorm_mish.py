@@ -1,0 +1,100 @@
+"""Masked GroupNorm + Mish (kernel K1 of the port).
+
+Counterpart of gradtts_tpu/ops/pallas/groupnorm_mish.py: ``_gn_mish_kernel``
+(:48) and the jnp twin ``_reference`` (:133) that the JAX package runs by
+default. The CUDA kernel is ``csrc/groupnorm_mish.cu``; its source says what
+bounds it on the H100 and how it is laid out.
+
+Semantics (reference diffusion.py:49-58): GroupNorm(groups, eps) over all
+(F, T) positions of a batch item, masked zeros included, then the affine,
+Mish, and the time mask. Statistics are single-pass f32 E[x^2] - E[x]^2 with
+the variance clamped at 0, as ``_reference`` computes them.
+"""
+
+import torch
+
+from gradtts_tpu_torch.ops import _build
+
+_THREADS = 256             # csrc/groupnorm_mish.cu: THREADS
+_TARGET_BLOCKS = 4 * 132   # four blocks per SM of an H100
+_CHANNELS = (16, 32, 64, 128, 256)
+
+
+def mish_f32(y: torch.Tensor) -> torch.Tensor:
+    """Mish with the stable softplus log1p(exp(-|y|)) + max(y, 0)."""
+    return y * torch.tanh(torch.log1p(torch.exp(-y.abs())) + y.clamp_min(0))
+
+
+def groupnorm_mish_plain(x, mask, gamma, beta, groups: int = 8,
+                         eps: float = 1e-5):
+    """Plain PyTorch version. x [B, F, T, C]; mask [B, 1, T, 1];
+    gamma, beta [C]. Returns x's dtype."""
+    B, F, T, C = x.shape
+    x32 = x.float().reshape(B, F * T, groups, C // groups)
+    n = F * T * (C // groups)
+    mean = x32.sum(dim=(1, 3), keepdim=True) / n
+    var = ((x32 * x32).sum(dim=(1, 3), keepdim=True) / n
+           - mean * mean).clamp_min(0.0)
+    scale = torch.rsqrt(var + eps) * gamma.float().reshape(1, 1, groups, -1)
+    shift = beta.float().reshape(1, 1, groups, -1) - mean * scale
+    y = (x32 * scale + shift).reshape(B, F, T, C)
+    return (mish_f32(y) * mask.float()).to(x.dtype)
+
+
+def _check(x, mask, gamma, beta, groups):
+    if x.dim() != 4:
+        raise ValueError(f'groupnorm_mish: x must be [B, F, T, C], got {tuple(x.shape)}')
+    B, F, T, C = x.shape
+    if x.dtype not in _build.DTYPE_CODES:
+        raise TypeError(f'groupnorm_mish: unsupported dtype {x.dtype}')
+    if C not in _CHANNELS or C % groups:
+        raise ValueError(f'groupnorm_mish: C={C}, groups={groups} not supported')
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError('groupnorm_mish: x must be contiguous and 16-byte aligned')
+    if tuple(mask.shape) != (B, 1, T, 1) or mask.dtype != x.dtype \
+            or not mask.is_contiguous():
+        raise ValueError('groupnorm_mish: mask must be a contiguous [B, 1, T, 1] '
+                         'tensor in x\'s dtype')
+    for name, p in (('gamma', gamma), ('beta', beta)):
+        if tuple(p.shape) != (C,) or p.dtype != torch.float32 \
+                or not p.is_contiguous():
+            raise ValueError(f'groupnorm_mish: {name} must be contiguous f32 [C]')
+    for t in (mask, gamma, beta):
+        if t.device != x.device:
+            raise ValueError('groupnorm_mish: all inputs must be on one device')
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, gamma, beta)):
+        raise NotImplementedError(
+            'groupnorm_mish: the CUDA kernel has no backward yet; call it '
+            'under torch.no_grad()')
+
+
+def groupnorm_mish(x, mask, gamma, beta, groups: int = 8, eps: float = 1e-5):
+    """x [B, F, T, C] contiguous; mask [B, 1, T, 1] in x's dtype; gamma,
+    beta [C] f32. CPU tensors take :func:`groupnorm_mish_plain`; CUDA
+    tensors launch the kernel (two passes) or raise."""
+    if x.device.type == 'cpu':
+        return groupnorm_mish_plain(x, mask, gamma, beta, groups, eps)
+    _check(x, mask, gamma, beta, groups)
+    B, F, T, C = x.shape
+    N = F * T
+    rows_in_flight = _THREADS // (C * x.element_size() // 16)
+    tiles = max(1, min(-(-_TARGET_BLOCKS // B), -(-N // rows_in_flight)))
+    chunk = -(-N // tiles)
+    tiles = -(-N // chunk)
+    part = torch.empty((B, tiles, 2, C), dtype=torch.float32, device=x.device)
+    out = torch.empty_like(x)
+    lib = _build.load('groupnorm_mish')
+    dtype, stream = _build.DTYPE_CODES[x.dtype], _build.stream_of(x)
+    _build.check(lib, lib.gtt_gn_stats(
+        x.data_ptr(), part.data_ptr(), B, N, C, chunk, tiles, dtype, stream),
+        'gtt_gn_stats')
+    _build.check(lib, lib.gtt_gn_apply(
+        x.data_ptr(), mask.data_ptr(), part.data_ptr(), gamma.data_ptr(),
+        beta.data_ptr(), out.data_ptr(), B, N, T, C, chunk, tiles, groups,
+        eps, dtype, stream), 'gtt_gn_apply')
+    groupnorm_mish.launches += 1
+    return out
+
+
+groupnorm_mish.launches = 0

@@ -1,0 +1,179 @@
+"""The weight bridge between the JAX package's param trees and the reference
+torch ``state_dict`` layout that the port's modules carry.
+
+``flax_params_to_state_dict`` is the exact inverse of
+gradtts_tpu/utils/convert.py ``gradtts_torch_to_flax`` (:199); the key
+mapping below is the port's own copy of that file's ``_encoder_torch_key``
+(:71) and ``_estimator_torch_key`` (:111). Per parameter kind:
+
+  flax Conv kernel (K, I, O)         -> torch Conv1d (O, I, K)
+  flax Dense kernel (I, O)           -> torch Linear (O, I)
+  flax Dense from a k=1 conv (I, O)  -> torch Conv1d (O, I, 1)
+  flax Conv kernel (Kh, Kw, I, O)    -> torch Conv2d (O, I, Kh, Kw)
+  flax flipped kernel (Kh, Kw, I, O) -> torch ConvTranspose2d (I, O, Kh, Kw)
+      (the JAX Upsample correlates with the spatially flipped kernel,
+       convert.py:44-45; the flip is undone here)
+  everything else                    -> copied
+"""
+
+import os
+import re
+
+import numpy as np
+import torch
+
+_IDX = re.compile(r'^(.*)_(\d+)$')
+
+
+def _encoder_torch_key(path):
+    """('prenet', 'conv_layers_0', 'kernel') ->
+    ('encoder.prenet.conv_layers.0.weight', kind)."""
+    *mods, leaf = path
+    torch_parts = []
+    for m in mods:
+        match = _IDX.match(m)
+        base, idx = (match.group(1), match.group(2)) if match else (m, None)
+        if base in ('conv_layers', 'norm_layers', 'attn_layers', 'ffn_layers',
+                    'norm_layers_1', 'norm_layers_2'):
+            torch_parts += [base, idx]
+        else:
+            torch_parts.append(m)
+    kind = None
+    if leaf == 'kernel':
+        torch_leaf = 'weight'
+        kind = 'dense_from_conv1' if mods[-1] in (
+            'conv_q', 'conv_k', 'conv_v', 'conv_o') else 'conv1d'
+    elif leaf in ('bias', 'gamma', 'beta', 'emb_rel_k', 'emb_rel_v'):
+        torch_leaf = leaf
+    elif leaf == 'embedding':
+        torch_leaf = 'weight'
+    else:
+        raise KeyError(f'unhandled encoder leaf {path}')
+    return '.'.join(['encoder'] + torch_parts + [torch_leaf]), kind
+
+
+def _estimator_torch_key(path):
+    """flax estimator path -> (key under decoder.estimator, kind)."""
+    parts = list(path)
+    name = parts[0]
+    weight = {'kernel': 'weight', 'bias': 'bias', 'scale': 'weight'}
+
+    def resblock(sub, prefix):
+        if sub[0] in ('block1', 'block2'):
+            which = {'conv': '0', 'norm': '1'}[sub[1]]
+            kind = 'conv2d' if sub[2] == 'kernel' else None
+            return f'{prefix}.{sub[0]}.block.{which}.{weight[sub[2]]}', kind
+        if sub[0] == 'mlp_dense':
+            return (f'{prefix}.mlp.1.{weight[sub[1]]}',
+                    'dense' if sub[1] == 'kernel' else None)
+        if sub[0] == 'res_conv':
+            return (f'{prefix}.res_conv.{weight[sub[1]]}',
+                    'conv2d' if sub[1] == 'kernel' else None)
+        raise KeyError(sub)
+
+    def attnblock(sub, prefix):
+        if sub[0] == 'g':
+            return f'{prefix}.fn.g', None
+        return (f'{prefix}.fn.fn.{sub[1]}.{weight[sub[2]]}',
+                'conv2d' if sub[2] == 'kernel' else None)
+
+    m = re.match(r'^(downs|ups)_(\d+)_(res1|res2|attn|down|up)$', name)
+    if m:
+        grp, i, role = m.groups()
+        slot = {'res1': '0', 'res2': '1', 'attn': '2', 'down': '3',
+                'up': '3'}[role]
+        prefix = f'{grp}.{i}.{slot}'
+        if role in ('res1', 'res2'):
+            return resblock(parts[1:], prefix)
+        if role == 'attn':
+            return attnblock(parts[1:], prefix)
+        kind = {'down': 'conv2d', 'up': 'convT2d'}[role]
+        return (f'{prefix}.conv.{weight[parts[-1]]}',
+                kind if parts[-1] == 'kernel' else None)
+    if name in ('mid_block1', 'mid_block2'):
+        return resblock(parts[1:], name)
+    if name == 'mid_attn':
+        return attnblock(parts[1:], name)
+    if name == 'final_block':
+        which = {'conv': '0', 'norm': '1'}[parts[1]]
+        return (f'final_block.block.{which}.{weight[parts[2]]}',
+                'conv2d' if parts[2] == 'kernel' else None)
+    if name == 'final_conv':
+        return (f'final_conv.{weight[parts[1]]}',
+                'conv2d' if parts[1] == 'kernel' else None)
+    m = re.match(r'^(spk_mlp|mlp)_(\d)$', name)
+    if m:
+        return (f'{m.group(1)}.{m.group(2)}.{weight[parts[1]]}',
+                'dense' if parts[1] == 'kernel' else None)
+    raise KeyError(f'unhandled estimator path {path}')
+
+
+# flax array -> torch layout, the inverse of convert.py's _KIND_FN
+_TO_TORCH = {
+    None: lambda w: w,
+    'conv1d': lambda w: w.transpose(2, 1, 0),
+    'dense': lambda w: w.T,
+    'dense_from_conv1': lambda w: w.T[:, :, None],
+    'conv2d': lambda w: w.transpose(3, 2, 0, 1),
+    'convT2d': lambda w: w[::-1, ::-1].transpose(2, 3, 0, 1),
+}
+
+
+def _flatten(tree, prefix=()):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flatten(v, prefix + (k,)))
+        else:
+            out[prefix + (k,)] = v
+    return out
+
+
+def flax_params_to_state_dict(params) -> dict:
+    """The JAX package's GradTTS param tree (``{'params': ...}`` or its inner
+    dict, leaves as numpy arrays) -> reference-layout ``state_dict`` of f32
+    torch tensors."""
+    tree = params.get('params', params)
+    sd = {}
+    for path, leaf in _flatten(tree).items():
+        if path[0] == 'encoder':
+            key, kind = _encoder_torch_key(path[1:])
+        elif path[0] == 'estimator':
+            key, kind = _estimator_torch_key(path[1:])
+            key = 'decoder.estimator.' + key
+        elif path[0] == 'spk_emb':
+            key, kind = 'spk_emb.weight', None
+        else:
+            raise KeyError(f'unhandled top-level module {path[0]}')
+        w = _TO_TORCH[kind](np.asarray(leaf, dtype=np.float32))
+        sd[key] = torch.from_numpy(np.ascontiguousarray(w))
+    return sd
+
+
+def _unflatten_npz(flat):
+    """'/'-joined keys (gradtts_tpu/utils/io.py save_params_npz) -> tree."""
+    tree = {}
+    for key, v in flat.items():
+        *parents, leaf = key.split('/')
+        node = tree
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return tree
+
+
+def load_checkpoint(path: str) -> dict:
+    """A reference-layout ``state_dict`` from a reference ``.pt``/``.pth``
+    file or from a ``.npz`` param tree written by the JAX package."""
+    if path.endswith(('.pt', '.pth')):
+        sd = torch.load(path, map_location='cpu', weights_only=True)
+        if isinstance(sd.get('model'), dict):
+            sd = sd['model']
+        return sd
+    if path.endswith('.npz'):
+        with np.load(path) as data:
+            return flax_params_to_state_dict(
+                _unflatten_npz({k: data[k] for k in data.files}))
+    kind = 'directory' if os.path.isdir(path) else 'file'
+    raise ValueError(f'unsupported checkpoint {kind} {path!r}: the port loads '
+                     'reference .pt files and .npz param trees')

@@ -1,0 +1,90 @@
+"""Shared set-up of the tests that hold gradtts_tpu_torch to gradtts_tpu: a
+tiny GradTTS whose every parameter is drawn from a numpy seed, in both
+packages."""
+
+import numpy as np
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from gradtts_tpu.models import GradTTS as JaxGradTTS
+from gradtts_tpu_torch.config import get_config
+from gradtts_tpu_torch.models.tts import GradTTS
+from gradtts_tpu_torch.utils.convert import flax_params_to_state_dict
+
+# the ljspeech vocabulary at tiny widths; dec_dim 16 gives U-Net levels of
+# 16, 32 and 64 channels, each a multiple of the 8 GroupNorm groups
+TINY = dict(n_enc_channels=32, filter_channels=64, filter_channels_dp=16,
+            n_heads=2, n_enc_layers=2, n_feats=80, dec_dim=16)
+TINY_SET = ['encoder.n_enc_channels=32', 'encoder.filter_channels=64',
+            'encoder.filter_channels_dp=16', 'encoder.n_enc_layers=2',
+            'decoder.dec_dim=16']
+N_VOCAB = get_config('ljspeech').n_vocab
+
+# The tiny shapes gain nothing from torch's intra-op threads, and with
+# several pytest workers on one machine those threads oversubscribe its
+# cores (measured: 3.6x the CPU time of these tests, 2x their wall time).
+torch.set_num_threads(1)
+
+
+def _draw(rng, shape, name):
+    if shape == (1,):                 # ReZero gain: non-zero, so the
+        return rng.uniform(0.3, 0.7, shape)   # attention contributes
+    if len(shape) == 1:               # biases, norm scales and shifts
+        return rng.standard_normal(shape) * 0.3
+    # kernels [..., in, out]: std gain/sqrt(fan_in). A random score does not
+    # pull x_t back towards mu, so the 10 Euler steps grow x_t - mu about
+    # exp(0.5 * integral of beta) ~ 150-fold; the linear attention is
+    # quadratic in its input's scale. The gains keep the U-Net's un-normed
+    # residual stream finite for inputs up to 1000x their start while the
+    # attention still moves the output by ~10%.
+    gain = next((g for key, g in _GAINS if key in name), 1.0)
+    return rng.standard_normal(shape) * gain / np.sqrt(np.prod(shape[:-1]))
+
+
+_GAINS = (('to_qkv', 0.05), ('res_conv', 0.3), ('_down', 0.5), ('_up', 0.5))
+
+
+def seeded_tree(tree, seed: int):
+    """Every leaf of a param tree redrawn from ``seed`` as numpy f32."""
+    rng = np.random.default_rng(seed)
+    leaves, treedef = jax.tree_util.tree_flatten_with_path(tree)
+    new = [_draw(rng, np.shape(l), jax.tree_util.keystr(path)).astype(
+        np.float32) for path, l in leaves]
+    return jax.tree_util.tree_unflatten(treedef, new)
+
+
+def jax_model_and_params(seed: int = 0, **overrides):
+    hp = {**TINY, **overrides}
+    model = JaxGradTTS(n_vocab=N_VOCAB, **hp)
+    x = jnp.ones((1, 8), jnp.int32)
+    y = jnp.zeros((1, 16, hp['n_feats']), jnp.float32)
+    # every leaf is redrawn, so the tree's shapes are all that init must give
+    shapes = jax.eval_shape(model.init, jax.random.PRNGKey(0), x,
+                            jnp.array([8]), y, jnp.array([16]))
+    return model, seeded_tree(shapes, seed)
+
+
+def jax_estimate(model, params, x_t, mask, mu, t, **kw):
+    """``GradTTS.estimate`` of the JAX package, jitted (op-by-op
+    execution of the folded U-Net costs several times its compile)."""
+    fn = jax.jit(lambda p, *a: model.apply(p, *a, method=JaxGradTTS.estimate,
+                                           **kw))
+    return np.asarray(fn(params, *map(jnp.asarray, (x_t, mask, mu, t))))
+
+
+def torch_model(params, **overrides):
+    """The port's GradTTS (f32, CPU) with the JAX params loaded strictly."""
+    model = GradTTS(n_vocab=N_VOCAB, **{**TINY, **overrides})
+    model.load_state_dict(flax_params_to_state_dict(params), strict=True)
+    return model.eval()
+
+
+def text_batch(seed: int, lengths=(16, 11), t_x: int = 16):
+    """Token ids [B, Tx] padded with zeros past each length."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(1, N_VOCAB, (len(lengths), t_x)).astype(np.int32)
+    for b, n in enumerate(lengths):
+        x[b, n:] = 0
+    return x, np.asarray(lengths, np.int32)

@@ -1,0 +1,106 @@
+"""K1: the port's plain GroupNorm+Mish against the JAX package's jnp twin
+``_reference`` and its Pallas kernel run in interpret mode, and the CPU
+wrapper's dispatch to the plain version."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from gradtts_tpu.ops.pallas import groupnorm_mish as jgn
+from gradtts_tpu_torch.ops import groupnorm_mish as tgn
+
+
+def _inputs(seed, B, F, T, C, tail):
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((B, F, T, C)) * 2.0 + 0.5).astype(np.float32)
+    mask = np.ones((B, 1, T, 1), np.float32)
+    mask[-1, :, T - tail:] = 0.0                     # zero tail
+    x *= mask                                        # as after conv(x * mask)
+    gamma = rng.standard_normal(C).astype(np.float32)
+    beta = rng.standard_normal(C).astype(np.float32)
+    return x, mask, gamma, beta
+
+
+def _torch(x, mask, gamma, beta, dtype):
+    return (torch.from_numpy(x).to(dtype), torch.from_numpy(mask).to(dtype),
+            torch.from_numpy(gamma), torch.from_numpy(beta))
+
+
+# f32: both sides sum in f32 in different orders over n = F*T*C/8 values;
+# 1e-5 covers that. bf16: the inputs are the same bf16 values and the math
+# f32 on both sides, so the outputs differ by at most one bf16 rounding
+# (2^-8 relative) where an f32 difference straddles a rounding boundary.
+_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
+        torch.bfloat16: dict(rtol=2 ** -8, atol=2 ** -8)}
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('shape', [(2, 8, 24, 16), (2, 4, 12, 32)])
+def test_plain_matches_jnp_reference(shape, dtype):
+    x, mask, gamma, beta = _inputs(0, *shape, tail=5)
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    want = jgn._reference(jnp.asarray(x, jdt), jnp.asarray(mask, jdt),
+                          jnp.asarray(gamma), jnp.asarray(beta), 8, 1e-5)
+    got = tgn.groupnorm_mish_plain(*_torch(x, mask, gamma, beta, dtype))
+    assert got.dtype == dtype
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), **_TOL[dtype])
+
+
+@pytest.mark.parametrize('shape', [(2, 8, 24, 16), (1, 4, 16, 32)])
+def test_plain_matches_pallas_interpret(shape):
+    # the Pallas kernel does not clamp the variance (:69); at these inputs
+    # the variance is far from 0, so the clamp changes nothing
+    x, mask, gamma, beta = _inputs(1, *shape, tail=3)
+    want = jgn._forward(jnp.asarray(x), jnp.asarray(mask), jnp.asarray(gamma),
+                        jnp.asarray(beta), 8, 1e-5, interpret=True)
+    got = tgn.groupnorm_mish_plain(*_torch(x, mask, gamma, beta,
+                                           torch.float32))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_wrapper_takes_plain_version_on_cpu():
+    x, mask, gamma, beta = _inputs(2, 2, 4, 8, 16, tail=2)
+    args = _torch(x, mask, gamma, beta, torch.float32)
+    before = tgn.groupnorm_mish.launches
+    out = tgn.groupnorm_mish(*args)
+    assert tgn.groupnorm_mish.launches == before
+    torch.testing.assert_close(out, tgn.groupnorm_mish_plain(*args),
+                               rtol=0, atol=0)
+    # masked frames are exactly zero
+    assert out[-1, :, -2:].abs().max().item() == 0.0
+
+
+def _bad_inputs(case):
+    x, mask, gamma, beta = _torch(*_inputs(3, 2, 4, 8, 16, tail=2),
+                                  torch.float32)
+    if case == 'not contiguous':
+        x = x.transpose(1, 2)
+    elif case == 'float16':
+        x, mask = x.half(), mask.half()
+    elif case == 'C not supported':
+        x = torch.zeros(2, 4, 8, 24)
+    elif case == 'mask dtype':
+        mask = mask.double()
+    elif case == 'gamma shape':
+        gamma = gamma[:8]
+    elif case == 'requires grad':
+        x.requires_grad_(True)
+    return x, mask, gamma, beta
+
+
+@pytest.mark.parametrize('case,error', [
+    ('not contiguous', ValueError), ('float16', TypeError),
+    ('C not supported', ValueError), ('mask dtype', ValueError),
+    ('gamma shape', ValueError), ('requires grad', NotImplementedError)])
+def test_kernel_input_check_refuses(case, error):
+    # the checks run before every CUDA launch; they take any device
+    with pytest.raises(error):
+        tgn._check(*_bad_inputs(case), groups=8)
+
+
+def test_kernel_input_check_accepts_the_u_net_inputs():
+    tgn._check(*_bad_inputs('none'), groups=8)

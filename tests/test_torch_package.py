@@ -1,0 +1,70 @@
+"""Package rules of gradtts_tpu_torch: it imports neither JAX nor the JAX
+package, its entry points never fall back to the CPU, it refuses the
+presets it does not port yet, and its CPU path launches no kernel."""
+
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from _torch_port import TINY, N_VOCAB
+from gradtts_tpu_torch.cli.inference import main as inference_main
+from gradtts_tpu_torch.config import get_config
+from gradtts_tpu_torch.models.tts import GradTTS, synthesize
+from gradtts_tpu_torch.ops import groupnorm_mish as tgn
+from gradtts_tpu_torch.ops import linear_attention as tla
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_IMPORT_ALL = """
+import pkgutil, importlib, sys
+import gradtts_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(gradtts_tpu_torch.__path__,
+                                               'gradtts_tpu_torch.')]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'gradtts_tpu'))
+print(len(names), 'modules;', 'forbidden:', bad)
+assert len(names) >= 15 and not bad
+"""
+
+
+def test_imports_neither_jax_nor_the_jax_package():
+    env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}
+    proc = subprocess.run([sys.executable, '-c', _IMPORT_ALL], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_entry_point_without_gpu_raises(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    texts = tmp_path / 't.txt'
+    texts.write_text('hello\n')
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        inference_main(['-f', str(texts), '-c', 'unused.pt',
+                        '-o', str(tmp_path / 'o')])
+
+
+@pytest.mark.parametrize('preset,overrides', [
+    ('libri-tts', {}), ('tedlium', {}), ('ljspeech', {'encoder_speaker': True})])
+def test_speaker_presets_are_refused(preset, overrides):
+    with pytest.raises(NotImplementedError, match='single-speaker'):
+        GradTTS.from_config(get_config(preset, **overrides))
+
+
+def test_cpu_path_launches_no_kernel():
+    torch.manual_seed(0)
+    model = GradTTS(n_vocab=N_VOCAB, **TINY).eval()
+    for m in model.modules():                # non-zero gains: attention runs
+        if hasattr(m, 'g'):
+            m.g.data.fill_(0.5)
+    counters = (tgn.groupnorm_mish, tla.attention_stats, tla.attention_apply)
+    before = [c.launches for c in counters]
+    res = synthesize(model, torch.randint(1, N_VOCAB, (1, 8)),
+                     torch.tensor([8]), n_timesteps=2, y_max_length=32)
+    assert torch.isfinite(res.decoder_outputs).all()
+    assert [c.launches for c in counters] == before

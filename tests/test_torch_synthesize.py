@@ -1,0 +1,93 @@
+"""The whole slice: the port's ``synthesize`` against the JAX package's
+``synthesize(noise=)`` on the same seeded weights, text and noise, and the
+port's inference CLI on a tiny ``.npz`` and a tiny ``.pt``."""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from _torch_port import (TINY_SET, jax_model_and_params, text_batch,
+                         torch_model)
+from gradtts_tpu.models import synthesize as jax_synthesize
+from gradtts_tpu.utils.io import save_params_npz
+from gradtts_tpu_torch.cli.inference import main as inference_main
+from gradtts_tpu_torch.models.tts import synthesize
+from gradtts_tpu_torch.utils.convert import flax_params_to_state_dict
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+Y_MAX = 64
+
+
+@pytest.fixture(scope='module')
+def tiny():
+    return jax_model_and_params(seed=5)
+
+
+def test_synthesize_matches_jax(tiny):
+    jmodel, params = tiny
+    x, xl = text_batch(6, (16, 9))
+    noise = np.random.default_rng(7).standard_normal(
+        (2, Y_MAX, 80)).astype(np.float32)
+    want = jax_synthesize(jmodel, params, jnp.asarray(x), jnp.asarray(xl),
+                          n_timesteps=10, y_max_length=Y_MAX,
+                          key=jax.random.PRNGKey(0), temperature=1.5,
+                          noise=jnp.asarray(noise))
+    got = synthesize(torch_model(params), torch.from_numpy(x).long(),
+                     torch.from_numpy(xl), n_timesteps=10, y_max_length=Y_MAX,
+                     temperature=1.5, noise=torch.from_numpy(noise))
+    np.testing.assert_array_equal(got.y_lengths.numpy(),
+                                  np.asarray(want.y_lengths))
+    np.testing.assert_array_equal(got.attn.numpy(), np.asarray(want.attn))
+    np.testing.assert_array_equal(got.y_mask.numpy(), np.asarray(want.y_mask))
+    # mu_y copies mu_x entries through a 0/1 path: encoder tolerance
+    np.testing.assert_allclose(got.encoder_outputs.numpy(),
+                               np.asarray(want.encoder_outputs), rtol=1e-5,
+                               atol=1e-5)
+    # With random weights the score does not pull x_t towards mu, so the 10
+    # Euler steps grow the mel ~100-fold; both sides grow alike and keep the
+    # U-Net's ~1e-5 relative agreement, so the bound is relative to the
+    # largest value.
+    dec = np.asarray(want.decoder_outputs)
+    scale = np.abs(dec).max()
+    assert np.isfinite(dec).all() and scale > 1.0
+    np.testing.assert_allclose(got.decoder_outputs.numpy(), dec, rtol=1e-4,
+                               atol=1e-4 * scale)
+
+
+def _cli_args(tmp_path, checkpoint, extra=()):
+    texts = tmp_path / 'texts.txt'
+    texts.write_text('Hello world.\nThe port runs on the card.\n')
+    cmudict = os.path.join(REPO, 'resources', 'cmu_dictionary')
+    return ['-f', str(texts), '-c', str(checkpoint),
+            '-o', str(tmp_path / 'out'), '-t', '2', '--cpu',
+            '--set', *TINY_SET, f'data.cmudict_path={cmudict}', *extra]
+
+
+@pytest.mark.parametrize('fmt', ['npz', 'pt'])
+def test_cli_writes_finite_mels(tiny, tmp_path, capsys, fmt):
+    _, params = tiny
+    ckpt = tmp_path / f'tiny.{fmt}'
+    if fmt == 'npz':
+        save_params_npz(str(ckpt), params)
+    else:
+        torch.save(flax_params_to_state_dict(params), ckpt)
+    inference_main(_cli_args(tmp_path, ckpt))
+    assert capsys.readouterr().out.count('RTF') == 2
+    for i in range(2):
+        mel = np.load(tmp_path / 'out' / f'mel_{i}.npy')
+        assert mel.ndim == 2 and mel.shape[1] == 80 and mel.shape[0] > 0
+        assert np.isfinite(mel).all()
+
+
+@pytest.mark.parametrize('flag', [['--vocoder', 'v.pt'], ['--stoc'],
+                                  ['--sampler', 'dpm'], ['-s', '0']])
+def test_cli_refuses_paths_not_ported(tmp_path, capsys, flag):
+    with pytest.raises(SystemExit) as exit_info:
+        inference_main(_cli_args(tmp_path, tmp_path / 'missing.pt', flag))
+    assert exit_info.value.code == 2
+    assert 'not ported' in capsys.readouterr().err
