@@ -8,14 +8,25 @@ Phases, each printing one JSON line:
   1. build    the hand-written kernels from gradtts_tpu_torch/csrc (one nvcc
               per source, all at once) and report nvcc's register report;
   2. kernels  hold every kernel against its plain PyTorch version at each
-              shape the U-Net gives it (B 8, 768 frames), in f32 and bf16,
-              and time kernel and plain version in bf16;
+              shape its path gives it, in f32 and bf16, and time kernel and
+              plain version in bf16: K1-K3 at the synthesis shapes (B 8,
+              768 frames) and the training shapes (B 16, 172-frame crops,
+              ragged row tiles), K4 and K5 at the training shapes, MAS at
+              [16, 384, 1024];
   3. slice    a full-width ljspeech GradTTS with every weight drawn from a
               seed: 10-step synthesis (B 2, Tx 64, Ty 256, f32) on the GPU
               against the same on the CPU (plain versions);
   4. cli      python -m gradtts_tpu_torch.cli.inference on that checkpoint;
   5. synth    bf16 synthesis at B 8, Tx 128, Ty 768, 10 Euler steps: launch
-              counts per synthesis, audio-s/s and the kernels' device share.
+              counts per synthesis, audio-s/s and the kernels' device share;
+  6. train_slice  the same seeded model: compute_loss + backward (B 2, Tx 64,
+              Ty 256, 172-frame crop, f32) on the GPU against the CPU, with
+              the same crop offsets, diffusion times and noise;
+  7. train    python -m gradtts_tpu_torch.cli.train --preset ljspeech on a
+              synthetic 64-utterance corpus (B 16, bf16 compute, f32
+              parameters), a resumed step, cli.inference on its checkpoint;
+              then the train step timed in-process: launches per step,
+              steps/s, audio-s trained per second and the device share.
 Then the card's name and power limit (nvidia-smi), the {"kernels": [...]}
 line, and last {"ok": true, "device": {...}}. Any failure exits non-zero
 before the last line; so does a machine without a GPU or a directory
@@ -45,15 +56,30 @@ SR, HOP = 22050, 256
 LEVELS = [((80, 768, 64), 5, 1), ((40, 384, 128), 4, 1),
           ((20, 192, 256), 8, 2), ((20, 192, 128), 4, 1),
           ((40, 384, 64), 4, 1)]
-# max |kernel - plain| <= atol + rtol * |plain|, per dtype. f32: identical
-# inputs, f32 sums in other orders over up to 491520 values: ~1e-6
-# relative, 1e-4 leaves margin. bf16 outputs: both sides round the same f32
-# value, which may straddle a rounding boundary: one or two bf16 ulps.
+# the training shapes: B 16, 172-frame crops (config.out_size), F*T not a
+# multiple of the attention kernels' 32-row tiles
+TRAIN_B, CROP = 16, 172
+TRAIN_LEVELS = [((80, 172, 64), 5, 1), ((40, 86, 128), 4, 1),
+                ((20, 43, 256), 8, 2), ((20, 43, 128), 4, 1),
+                ((40, 86, 64), 4, 1)]
+MAS_SHAPE = (16, 384, 1024)      # [B, Tx, Ty]: the 384-token, 1024-frame buckets
+# Tolerances of |kernel - plain|, per dtype. Per-row outputs, elementwise
+# |d| <= tol + tol * |plain|: f32 sums in other orders over up to 491520
+# values, ~1e-6 relative, 1e-4 leaves margin; bf16 outputs round the same
+# f32 value on both sides, which may straddle a rounding boundary: one or
+# two bf16 ulps. The backward's batch-wide sums (dA, dWq, db, dg, dWk, dWv,
+# all f32), |d| <= tol * max |plain|: sums of up to 220160 rows in other
+# orders (f32), and the rare bf16 rounding of an intermediate that lands on
+# the other side of a boundary (bf16). MAS is bit-exact.
 TOL = {
     'groupnorm_mish': {'float32': 1e-4, 'bfloat16': 2 ** -7},
     'attention_stats': {'float32': 1e-4, 'bfloat16': 1e-4},   # f32 outputs
     'attention_apply': {'float32': 1e-4, 'bfloat16': 2 ** -6},
+    'attention_bwd_sweep1': {'float32': 1e-4, 'bfloat16': 2 ** -7},
+    'attention_bwd_sweep2': {'float32': 1e-4, 'bfloat16': 2 ** -6},
+    'maximum_path': {'float32': 0.0},
 }
+KERNELS = list(TOL)
 # weights drawn as std gain/sqrt(fan_in): a random score does not pull x_t
 # back to mu, so the Euler steps grow x_t - mu ~150-fold, and the linear
 # attention is quadratic in its input's scale; these gains keep the U-Net's
@@ -110,10 +136,11 @@ def phase_build():
         for ln in r['log'].splitlines():
             if 'Compiling entry function' in ln:
                 # _ZN..gn_stats_kernelI13__nv_bfloat16Li64E.. -> gn_stats<bf16,64>
-                m = re.search(r'((?:gn|la)_(?:stats|apply))_kernelI'
+                m = re.search(r'((?:gn|la)_[a-z0-9]+)_kernelI'
                               r'(f|13__nv_bfloat16)Li(\d+)E', ln)
+                plain = re.search(r'(mas)_kernel', ln)
                 fn = f"{m[1]}<{'f32' if m[2] == 'f' else 'bf16'},{m[3]}>" \
-                    if m else ln.split("'")[1]
+                    if m else plain[1] if plain else ln.split("'")[1]
             elif fn and 'spill stores' in ln:
                 spill = ln.split(',')[1].strip()
             elif fn and 'Used' in ln and 'registers' in ln:
@@ -127,13 +154,40 @@ def phase_build():
 # ---- phase 2 ---------------------------------------------------------------
 
 
-def _allclose(got, want, tol):
-    err = (got.float() - want.float()).abs()
-    ok = bool((err <= tol + tol * want.float().abs()).all())
-    return float(err.max()), ok
+def _err(got, want, tol, rel_to_max):
+    """(max |got - want|, within tolerance). Elementwise: |d| <= tol +
+    tol * |want|; rel_to_max (sums over many rows, where single values
+    cancel): |d| <= tol * max |want|."""
+    want = want.float()
+    err = (got.float() - want).abs()
+    if rel_to_max:
+        return float(err.max()), bool(err.max() <= tol * want.abs().max())
+    return float(err.max()), bool((err <= tol + tol * want.abs()).all())
+
+
+def _stat():
+    return {'ms': 0.0, 'plain_ms': 0.0, 'bytes_ms': 0.0, 'ops_ms': 0.0}
+
+
+def _timed(st, mult, fn, plain, nbytes, flops, peak, line):
+    """Times kernel and plain version once each; adds mult launches' worth
+    to the per-call sums in ``st``; returns the line's entry."""
+    ms, plain_ms = cuda_ms(fn, 20), cuda_ms(plain, 3, 1)
+    b_ms, by = bound(nbytes, flops, peak)
+    st['ms'] += mult * ms
+    st['plain_ms'] += mult * plain_ms
+    st['bytes_ms'] += mult * nbytes / HBM_BPS * 1e3
+    st['ops_ms'] += mult * flops / PEAK_FLOPS[peak] * 1e3
+    line.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+                per_call=mult)
 
 
 def phase_kernels(device):
+    """Every kernel against its plain version at the shapes its path gives
+    it, f32 and bf16; times in bf16. K1-K3 at the synthesis shapes (B 8,
+    Ty 768) and the training shapes (B 16, 172-frame crops, whose F*T leave
+    ragged row tiles); K4, K5 at the training shapes; MAS at [16, 384,
+    1024]. Returns {kernel: {'max_abs_err', path: per-call sums}}."""
     import numpy as np
     import torch
     from gradtts_tpu_torch.ops import groupnorm_mish as gn
@@ -141,105 +195,167 @@ def phase_kernels(device):
 
     rng = np.random.default_rng(0)
     H = la.HIDDEN
-    stats = {k: {'max_abs_err': 0.0, 'ms': 0.0, 'plain_ms': 0.0,
-                 'bytes_ms': 0.0, 'ops_ms': 0.0} for k in TOL}
+    stats = {k: {'max_abs_err': 0.0} for k in KERNELS}
 
     def rand(shape, scale=1.0, dtype=torch.float32):
         return torch.tensor(rng.standard_normal(shape) * scale,
                             dtype=torch.float32, device=device).to(dtype)
 
-    for (F, T, C), n_blocks, n_attn in LEVELS:
-        N = F * T
-        lengths = torch.tensor([T] * (B - 2) + [T * 3 // 4, T // 3],
-                               device=device)
-        for dtype in (torch.float32, torch.bfloat16):
-            dn = str(dtype).split('.')[1]
-            size = torch.tensor([], dtype=dtype).element_size()
-            mask = (torch.arange(T, device=device)[None] < lengths[:, None]
-                    ).to(dtype).reshape(B, 1, T, 1)
-            x = (rand((B, F, T, C), 2.0, dtype) + 0.5) * mask
-            gamma, beta = rand((C,)), rand((C,))
-            wq, wk, wv = (rand((C, H), 0.5 / math.sqrt(C), dtype)
-                          for _ in range(3))
-            w_out, b_out = rand((H, C), 1 / math.sqrt(H)), rand((C,), 0.1)
-            g = torch.tensor([0.7], device=device)
-            xr = x.view(B, N, C)
-            chunk = la.split_chunk(B, N)
-
-            def k1():
-                return gn.groupnorm_mish(x, mask, gamma, beta)
-
-            def k1_plain():
-                return gn.groupnorm_mish_plain(x, mask, gamma, beta)
-
-            def k2():
-                return la.attention_stats(xr, wk, wv, chunk)
-
-            def k2_plain():
-                return la.attention_stats_plain(xr, wk, wv, chunk)
-
-            m_p, ctx_p, den_p = la.merge_stats(*k2_plain())
-            ctx2, bias = la.fold_context(ctx_p, den_p, w_out, b_out, g, 32)
-            ctx2 = ctx2.to(dtype)
-
-            def k3():
-                return la.attention_apply(xr, wq, ctx2, bias)
-
-            def k3_plain():
-                return la.attention_apply_plain(xr, wq, ctx2, bias)
-
-            got_k1 = k1()
-            torch.cuda.synchronize()
-            m_k, ctx_k, den_k = la.merge_stats(*k2())
-            torch.cuda.synchronize()
-            got_k3 = k3()
-            torch.cuda.synchronize()
-            checks = {
-                'groupnorm_mish': [(got_k1, k1_plain())],
-                'attention_stats': [(ctx_k / den_k[..., None],
-                                     ctx_p / den_p[..., None]), (m_k, m_p)],
-                'attention_apply': [(got_k3, k3_plain())],
-            }
-            line = {'phase': 'kernels', 'shape': [B, F, T, C], 'dtype': dn}
-            for name, pairs in checks.items():
-                tol = TOL[name][dn]
-                errs = [_allclose(a, b, tol) for a, b in pairs]
-                err = max(e for e, _ in errs)
-                ok = all(o for _, o in errs)
-                line[name] = {'max_abs_err': err, 'tol': tol, 'ok': ok}
-                stats[name]['max_abs_err'] = max(stats[name]['max_abs_err'],
-                                                 err)
-                require(ok, f'{name} {dn} {(B, F, T, C)}: max abs err {err} '
-                            f'over tolerance {tol}')
-            if dtype == torch.bfloat16:      # the main path's dtype: time it
-                elems = B * N * C
-                work = {
-                    'groupnorm_mish': (n_blocks, k1, k1_plain,
-                                       2 * elems * size + B * T * size,
-                                       13 * elems, 'float32'),
-                    'attention_stats': (n_attn, k2, k2_plain,
-                                        elems * size + 2 * C * H * size
-                                        + B * (H * H + 2 * H) * 4,
-                                        B * N * (4 * C * H + 2 * H * 32
-                                                 + 2 * H), dn),
-                    'attention_apply': (n_attn, k3, k3_plain,
-                                        2 * elems * size + C * H * size
-                                        + B * H * C * size + C * 4,
-                                        B * N * (4 * C * H + C), dn),
+    for path, bsz, levels in (('synth', B, LEVELS),
+                              ('train', TRAIN_B, TRAIN_LEVELS)):
+        for (F, T, C), n_blocks, n_attn in levels:
+            N = F * T
+            lengths = torch.tensor([T] * (bsz - 2) + [T * 3 // 4, T // 3],
+                                   device=device)
+            for dtype in (torch.float32, torch.bfloat16):
+                dn = str(dtype).split('.')[1]
+                size = torch.tensor([], dtype=dtype).element_size()
+                mask = (torch.arange(T, device=device)[None]
+                        < lengths[:, None]).to(dtype).reshape(bsz, 1, T, 1)
+                x = (rand((bsz, F, T, C), 2.0, dtype) + 0.5) * mask
+                gamma, beta = rand((C,)), rand((C,))
+                wq, wk, wv = (rand((C, H), 0.5 / math.sqrt(C), dtype)
+                              for _ in range(3))
+                w_out, b_out = rand((H, C), 1 / math.sqrt(H)), rand((C,), 0.1)
+                g = torch.tensor([0.7], device=device)
+                xr = x.view(bsz, N, C)
+                chunk = la.split_chunk(bsz, N)
+                m_p, ctx_p, den_p = la.merge_stats(
+                    *la.attention_stats_plain(xr, wk, wv, chunk))
+                ctx2, bias = la.fold_context(ctx_p, den_p, w_out, b_out, g,
+                                             32)
+                ctx2 = ctx2.to(dtype)
+                fns = {
+                    'groupnorm_mish': (
+                        lambda: gn._launch(x, mask, gamma, beta, 8, 1e-5),
+                        lambda: gn.groupnorm_mish_plain(x, mask, gamma,
+                                                        beta)),
+                    'attention_stats': (
+                        lambda: la.attention_stats(xr, wk, wv, chunk),
+                        lambda: la.attention_stats_plain(xr, wk, wv, chunk)),
+                    'attention_apply': (
+                        lambda: la.attention_apply(xr, wq, ctx2, bias),
+                        lambda: la.attention_apply_plain(xr, wq, ctx2,
+                                                         bias)),
                 }
-                for name, (mult, fn, plain, nbytes, flops, peak) in \
-                        work.items():
-                    ms, plain_ms = cuda_ms(fn, 20), cuda_ms(plain, 3, 1)
-                    b_ms, by = bound(nbytes, flops, peak)
-                    line[name].update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                                      bound_by=by, per_unet_call=mult)
+                elems = bsz * N * C
+                work = {   # (launches per U-Net call, bytes, flops, peak)
+                    'groupnorm_mish': (n_blocks, 2 * elems * size
+                                       + bsz * T * size, 13 * elems,
+                                       'float32'),
+                    'attention_stats': (n_attn, elems * size
+                                        + 2 * C * H * size
+                                        + bsz * (H * H + 2 * H) * 4,
+                                        bsz * N * (4 * C * H + 2 * H * 32
+                                                   + 2 * H), dn),
+                    'attention_apply': (n_attn, 2 * elems * size
+                                        + C * H * size + bsz * H * C * size
+                                        + C * 4, bsz * N * (4 * C * H + C),
+                                        dn),
+                }
+
+                def stats_pairs(out):
+                    m_k, ctx_k, den_k = la.merge_stats(*out)
+                    return [(ctx_k / den_k[..., None],
+                             ctx_p / den_p[..., None], False), (m_k, m_p,
+                                                                False)]
+
+                pairs = {
+                    'groupnorm_mish': lambda got, want: [(got, want, False)],
+                    'attention_stats': lambda got, want: stats_pairs(got),
+                    'attention_apply': lambda got, want: [(got, want, False)],
+                }
+                if path == 'train':
+                    dy = rand((bsz, N, C), 1.0, dtype)
+                    a_pre = ((ctx_p * la.head_blockdiag(H, 32, device))
+                             / den_p[:, :, None]) @ w_out
+                    a_full_t = (a_pre * 0.7).transpose(1, 2).to(dtype) \
+                        .contiguous()
+                    a_pre = a_pre.to(dtype).contiguous()
+                    dctx = (rand((bsz, H, H), 0.01)
+                            * la.head_blockdiag(H, 32, device)).to(dtype)
+                    dden = rand((bsz, H), 1e-3)
+                    fns['attention_bwd_sweep1'] = (
+                        lambda: la.attention_bwd_sweep1(xr, dy, wq, a_full_t,
+                                                        a_pre, b_out),
+                        lambda: la.attention_bwd_sweep1_plain(
+                            xr, dy, wq, a_full_t, a_pre, b_out))
+                    fns['attention_bwd_sweep2'] = (
+                        lambda: la.attention_bwd_sweep2(
+                            xr, dy, wq, wk, wv, m_p, a_full_t, dctx, dden),
+                        lambda: la.attention_bwd_sweep2_plain(
+                            xr, dy, wq, wk, wv, m_p, a_full_t, dctx, dden))
+                    pairs['attention_bwd_sweep1'] = lambda got, want: [
+                        (a, b, True) for a, b in zip(got, want)]
+                    pairs['attention_bwd_sweep2'] = lambda got, want: [
+                        (got[0], want[0], False)] + [
+                        (a, b, True) for a, b in zip(got[1:], want[1:])]
+                    work['attention_bwd_sweep1'] = (
+                        n_attn, 2 * elems * size + C * H * size
+                        + 2 * bsz * H * C * size + C * 4 + bsz * H * C * 4
+                        + C * H * 4 + 2 * C * 4,
+                        bsz * N * 10 * C * H, dn)
+                    work['attention_bwd_sweep2'] = (
+                        n_attn, 3 * elems * size + 3 * C * H * size
+                        + bsz * (C * H + H * H) * size + 2 * bsz * H * 4
+                        + 2 * C * H * 4,
+                        bsz * N * (16 * C * H + 4 * H * 32), dn)
+                line = {'phase': 'kernels', 'path': path,
+                        'shape': [bsz, F, T, C], 'dtype': dn}
+                for name, (fn, plain) in fns.items():
+                    got = fn()
+                    torch.cuda.synchronize()
+                    tol = TOL[name][dn]
+                    errs = [_err(a, b, tol, r)
+                            for a, b, r in pairs[name](got, plain())]
+                    err = max(e for e, _ in errs)
+                    ok = all(o for _, o in errs)
+                    line[name] = {'max_abs_err': err, 'tol': tol, 'ok': ok}
                     st = stats[name]
-                    st['ms'] += mult * ms
-                    st['plain_ms'] += mult * plain_ms
-                    st['bytes_ms'] += mult * nbytes / HBM_BPS * 1e3
-                    st['ops_ms'] += mult * flops / PEAK_FLOPS[peak] * 1e3
-            emit(line)
+                    st['max_abs_err'] = max(st['max_abs_err'], err)
+                    require(ok, f'{name} {dn} {(bsz, F, T, C)}: max abs err '
+                                f'{err} over tolerance {tol}')
+                    if dtype == torch.bfloat16:   # the main paths' dtype
+                        mult, nbytes, flops, peak = work[name]
+                        _timed(st.setdefault(path, _stat()), mult, fn, plain,
+                               nbytes, flops, peak, line[name])
+                emit(line)
+    _kernel_mas(device, rng, stats['maximum_path'])
     return stats
+
+
+def _kernel_mas(device, rng, st):
+    """MAS at [16, 384, 1024]: bit-exact against its plain version."""
+    import numpy as np
+    import torch
+    from gradtts_tpu_torch.ops import mas
+    bsz, tx, ty = MAS_SHAPE
+    t_x = rng.integers(tx // 2, tx + 1, bsz)
+    t_y = np.minimum(t_x * rng.uniform(2.0, 4.0, bsz), ty).astype(int)
+    t_x[0], t_y[0] = tx, ty
+    mask = torch.zeros((bsz, tx, ty), device=device)
+    for i in range(bsz):
+        mask[i, :t_x[i], :t_y[i]] = 1.0
+    value = torch.tensor(rng.standard_normal((bsz, tx, ty)) * 30.0 - 100.0,
+                         dtype=torch.float32, device=device)
+    got = mas.maximum_path(value, mask)
+    torch.cuda.synchronize()
+    want = mas.maximum_path_plain(value, mask)
+    err = float((got - want).abs().max())
+    line = {'phase': 'kernels', 'path': 'train', 'shape': list(MAS_SHAPE),
+            'dtype': 'float32',
+            'maximum_path': {'max_abs_err': err, 'tol': 0.0,
+                             'exact': bool(torch.equal(got, want)),
+                             'path_cells': int(want.sum())}}
+    require(torch.equal(got, want), f'maximum_path: kernel and plain paths '
+                                    f'differ (max abs err {err})')
+    st['max_abs_err'] = err
+    cells = bsz * tx * ty
+    _timed(st.setdefault('train', _stat()), 1,
+           lambda: mas.maximum_path(value, mask),
+           lambda: mas.maximum_path_plain(value, mask), 3 * cells * 4,
+           4 * int((mask != 0).sum()), 'float32', line['maximum_path'])
+    emit(line)
 
 
 # ---- phase 3 ---------------------------------------------------------------
@@ -266,23 +382,36 @@ def seeded_state_dict(model, seed):
     return sd
 
 
-def reset_counts():
+def _counted():
+    """{kernel: its wrapper}, each wrapper counting its launches."""
     from gradtts_tpu_torch.ops import groupnorm_mish as gn
     from gradtts_tpu_torch.ops import linear_attention as la
-    for fn in (gn.groupnorm_mish, la.attention_stats, la.attention_apply):
+    from gradtts_tpu_torch.ops import mas
+    return {'groupnorm_mish': gn.groupnorm_mish,
+            'attention_stats': la.attention_stats,
+            'attention_apply': la.attention_apply,
+            'attention_bwd_sweep1': la.attention_bwd_sweep1,
+            'attention_bwd_sweep2': la.attention_bwd_sweep2,
+            'maximum_path': mas.maximum_path}
+
+
+def reset_counts():
+    for fn in _counted().values():
         fn.launches = 0
 
 
 def read_counts():
-    from gradtts_tpu_torch.ops import groupnorm_mish as gn
-    from gradtts_tpu_torch.ops import linear_attention as la
-    return {'groupnorm_mish': gn.groupnorm_mish.launches,
-            'attention_stats': la.attention_stats.launches,
-            'attention_apply': la.attention_apply.launches}
+    return {name: fn.launches for name, fn in _counted().items()}
 
 
+# launches per synthesis (10 U-Net calls of 25 Blocks and 6 attentions) and
+# per training step (one U-Net forward and backward, one MAS)
 EXPECTED_COUNTS = {'groupnorm_mish': 25 * STEPS, 'attention_stats': 6 * STEPS,
-                   'attention_apply': 6 * STEPS}
+                   'attention_apply': 6 * STEPS, 'attention_bwd_sweep1': 0,
+                   'attention_bwd_sweep2': 0, 'maximum_path': 0}
+TRAIN_COUNTS = {'groupnorm_mish': 25, 'attention_stats': 6,
+                'attention_apply': 6, 'attention_bwd_sweep1': 6,
+                'attention_bwd_sweep2': 6, 'maximum_path': 1}
 
 
 def phase_slice(device):
@@ -416,7 +545,7 @@ def phase_synth(device, card):
     per_call = statistics.median(times)
     audio_s = B * TY * HOP / SR
 
-    share = _device_share(run, per_call * 1e3)
+    share = _device_share(run, per_call * 1e3, 'synth')
     emit({'phase': 'synth', 'card': card, 'batch': B, 'tx': TX, 'ty': TY,
           'steps': STEPS,
           'dtype': 'bfloat16', 'seconds_per_call': per_call,
@@ -426,10 +555,245 @@ def phase_synth(device, card):
     return counts
 
 
+# ---- phase 6 ---------------------------------------------------------------
+
+# GPU vs CPU, f32 with TF32 off: the losses are means over ~27k squared U-Net
+# outputs (~1e-5 relative apart, as in phase 3); each grad within 1e-3 of its
+# tensor's largest value, since the backward sums over many more terms in
+# other orders. The key biases of the encoder's attention have an exact
+# grad of zero (the softmax cancels a shift of a whole score row), so both
+# sides hold rounding noise there: each below 1e-7 of the largest grad
+TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL = 1e-4, 1e-3
+
+
+def phase_train_slice(device, ckpt):
+    import numpy as np
+    import torch
+    from gradtts_tpu_torch.config import get_config
+    from gradtts_tpu_torch.models.tts import GradTTS, compute_loss
+
+    cfg = get_config('ljspeech')
+    rng = np.random.default_rng(3)
+    bsz, t_x, t_y = 2, 64, 256
+    x = torch.from_numpy(rng.integers(1, cfg.n_vocab, (bsz, t_x)))
+    x_lengths = torch.tensor([t_x, 40])
+    x[1, 40:] = 0
+    y_lengths = torch.tensor([t_y, 200])
+    y = torch.from_numpy(rng.standard_normal(
+        (bsz, t_y, cfg.data.n_feats)).astype(np.float32) - 5.0)
+    y[1, 200:] = 0
+    offset = torch.tensor([40, 11])
+    t = torch.tensor([0.3, 0.8])
+    z = torch.from_numpy(rng.standard_normal(
+        (bsz, cfg.out_size, cfg.data.n_feats)).astype(np.float32))
+    results = []
+    for dev in (device, torch.device('cpu')):
+        model = GradTTS.from_config(cfg)
+        model.load_state_dict(torch.load(ckpt, weights_only=True),
+                              strict=True)
+        model = model.to(dev).eval()
+        args = [a.to(dev) for a in (x, x_lengths, y, y_lengths)]
+        reset_counts()
+        t0 = time.perf_counter()
+        res = compute_loss(model, *args, out_size=cfg.out_size,
+                           offset=offset.to(dev), t=t.to(dev), z=z.to(dev))
+        (res.dur_loss + res.prior_loss + res.diff_loss).backward()
+        grads = {n: p.grad.cpu() for n, p in model.named_parameters()
+                 if p.grad is not None}
+        results.append(([float(v.detach()) for v in res[:3]], res.attn.cpu(), grads,
+                         read_counts(), time.perf_counter() - t0))
+    (g_loss, g_attn, g_grads, counts, g_s), \
+        (c_loss, c_attn, c_grads, cpu_counts, c_s) = results
+    require(set(g_grads) == set(c_grads), 'train_slice: the GPU and the CPU '
+                                          'gave grads to other parameters')
+    largest = max(float(v.abs().max()) for v in c_grads.values())
+    worst, worst_name, noise = 0.0, None, 0.0
+    for name, want in c_grads.items():
+        got = g_grads[name]
+        require(bool(torch.isfinite(got).all()), f'train_slice: {name} grad '
+                                                 'not finite')
+        if name.endswith('conv_k.bias'):
+            noise = max(noise, float(got.abs().max()),
+                        float(want.abs().max()))
+            continue
+        frac = float((got - want).abs().max()) / max(
+            float(want.abs().max()), 1e-30)
+        if frac > worst:
+            worst, worst_name = frac, name
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(g_loss, c_loss)]
+    line = {'phase': 'train_slice', 'losses_gpu': g_loss,
+            'losses_cpu': c_loss, 'loss_rel_err': loss_rel,
+            'loss_rtol': TRAIN_LOSS_RTOL, 'attn_equal':
+            bool(torch.equal(g_attn, c_attn)), 'attn_cells':
+            int(g_attn.sum()), 'grad_tensors': len(c_grads),
+            'grad_worst_frac': worst, 'grad_worst_name': worst_name,
+            'grad_tol': TRAIN_GRAD_TOL, 'zero_grad_noise_frac':
+            noise / largest, 'gpu_launches': counts,
+            'cpu_launches': cpu_counts, 'gpu_s': g_s, 'cpu_s': c_s}
+    emit(line)
+    require(all(np.isfinite(g_loss)), 'train_slice: loss not finite')
+    require(max(loss_rel) <= TRAIN_LOSS_RTOL,
+            f'train_slice: losses {g_loss} vs {c_loss}')
+    require(line['attn_equal'], 'train_slice: MAS paths differ')
+    require(worst <= TRAIN_GRAD_TOL, f'train_slice: grad of {worst_name} '
+                                     f'off by {worst} of its largest value')
+    require(noise <= 1e-7 * largest, 'train_slice: a key bias grad is not '
+                                     'rounding noise')
+    require(counts == TRAIN_COUNTS, f'train_slice: GPU launches {counts}')
+    require(not any(cpu_counts.values()),
+            'train_slice: the CPU run launched kernels')
+
+
+# ---- phase 7 ---------------------------------------------------------------
+
+CORPUS_ITEMS, TRAIN_STEPS = 64, 12
+TRAIN_AUDIO_S = TRAIN_B * CROP * HOP / SR    # audio seconds per step
+
+
+def write_corpus(directory, n_items):
+    """``n_items`` wavs at 22.05 kHz (a sine plus noise), each as long as
+    its text from the ljspeech training filelist takes at ~15 characters a
+    second (1.5-10 s), and their ``path|text`` filelist."""
+    import wave
+    import numpy as np
+    os.makedirs(directory, exist_ok=True)
+    with open(os.path.join(REPO, 'resources', 'filelists', 'ljspeech',
+                           'train.txt'), encoding='utf-8') as f:
+        texts = [ln.rstrip('\n').split('|')[1] for _, ln in zip(
+            range(n_items), f)]
+    rng = np.random.default_rng(4)
+    lines = []
+    for i, text in enumerate(texts):
+        seconds = min(max(len(text) / 15.0, 1.5), 10.0)
+        tt = np.arange(int(SR * seconds)) / SR
+        wav = (0.3 * np.sin(2 * np.pi * rng.uniform(100, 400) * tt)
+               + 0.05 * rng.standard_normal(tt.shape))
+        path = os.path.join(directory, f'{i:03d}.wav')
+        with wave.open(path, 'wb') as w:
+            w.setnchannels(1)
+            w.setsampwidth(2)
+            w.setframerate(SR)
+            w.writeframes((wav * 32767).astype('<i2').tobytes())
+        lines.append(f'{path}|{text}')
+    filelist = os.path.join(directory, 'filelist.txt')
+    with open(filelist, 'w', encoding='utf-8') as f:
+        f.write('\n'.join(lines) + '\n')
+    return filelist
+
+
+def _run_cli(module, args):
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, '-m', module, *args], cwd=REPO,
+                          capture_output=True, text=True, timeout=900)
+    require(proc.returncode == 0, f'{module} exited {proc.returncode}:\n'
+                                  f'{proc.stderr[-3000:]}')
+    return proc, time.perf_counter() - t0
+
+
+def phase_train(device, card):
+    import shutil
+    import numpy as np
+    import torch
+    from gradtts_tpu_torch.config import get_config
+    from gradtts_tpu_torch.data.dataset import BatchCollate, TextMelDataset
+    from gradtts_tpu_torch.models.tts import GradTTS, set_compute_dtype
+    from gradtts_tpu_torch.train.loop import batch_to
+    from gradtts_tpu_torch.train.state import make_optimizer, train_step
+
+    filelist = write_corpus(os.path.join(WORK, 'corpus'), CORPUS_ITEMS)
+    log_dir = os.path.join(WORK, 'train')
+    shutil.rmtree(log_dir, ignore_errors=True)
+    common = ['--preset', 'ljspeech', '--log-dir', log_dir, '--set',
+              f'data.train_filelist_path={filelist}']
+    _, train_s = _run_cli('gradtts_tpu_torch.cli.train',
+                          common + ['--max-steps', str(TRAIN_STEPS)])
+    _, resume_s = _run_cli('gradtts_tpu_torch.cli.train',
+                           common + ['--max-steps', '1'])
+    epochs = []
+    with open(os.path.join(log_dir, 'train.log'), encoding='utf-8') as f:
+        for ln in f:
+            values = dict(kv.split('=') for kv in re.findall(
+                r'[\w/]+=[-\d.e+naif]+', ln))
+            epochs.append({k: float(v) for k, v in values.items()})
+    require(epochs and all(math.isfinite(v) for e in epochs
+                           for v in e.values()),
+            f'train: losses not finite: {epochs}')
+    ckpt = os.path.join(log_dir, 'ckpt', f'step_{TRAIN_STEPS + 1:08d}.pt')
+    require(os.path.exists(ckpt), 'train: the resumed run wrote no '
+                                  f'{os.path.basename(ckpt)}')
+    texts = os.path.join(WORK, 'train_texts.txt')
+    with open(texts, 'w', encoding='utf-8') as f:
+        f.write('Printing, in the only sense with which we are at present '
+                'concerned.\n')
+    out = os.path.join(WORK, 'train_cli_out')
+    _, infer_s = _run_cli('gradtts_tpu_torch.cli.inference',
+                          ['-f', texts, '-c', ckpt, '-o', out, '-t',
+                           str(STEPS), '--bf16'])
+    mel = np.load(os.path.join(out, 'mel_0.npy'))
+    require(mel.ndim == 2 and mel.shape[1] == 80 and np.isfinite(mel).all(),
+            'train: inference from the trained checkpoint is malformed')
+
+    # the train step in-process on one collated batch of the corpus
+    cfg = get_config('ljspeech',
+                     **{'data.train_filelist_path': filelist})
+    dataset = TextMelDataset.from_config(cfg)
+    batch = BatchCollate(cfg.data.x_buckets, cfg.data.y_buckets)(
+        [dataset[i] for i in range(TRAIN_B)])
+    batch = batch_to(batch, device)
+    torch.manual_seed(cfg.train.seed)
+    model = GradTTS.from_config(cfg).to(device).train()
+    set_compute_dtype(model, torch.bfloat16)
+    optimizer = make_optimizer(model.parameters(), cfg.train.learning_rate)
+    gen = torch.Generator(device=device).manual_seed(0)
+
+    def run():
+        metrics = train_step(model, optimizer, batch, cfg.out_size,
+                             cfg.train.grad_clip_norm, gen)
+        torch.cuda.synchronize()
+        return metrics
+
+    for _ in range(3):                              # warm-up
+        run()
+    reset_counts()
+    metrics = run()                                 # the main path's run
+    counts = read_counts()
+    require(counts == TRAIN_COUNTS, f'train: launches per step {counts}, '
+                                    f'expected {TRAIN_COUNTS}')
+    require(all(math.isfinite(float(v)) for v in metrics.values()),
+            f'train: step metrics not finite: {metrics}')
+    require(all(p.dtype == torch.float32 for p in model.parameters()),
+            'train: a parameter left f32')
+    torch.cuda.reset_peak_memory_stats(device)
+    times = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        run()
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated(device)
+    per_step = statistics.median(times)
+    share = _device_share(run, per_step * 1e3, 'train')
+    emit({'phase': 'train', 'card': card, 'batch': TRAIN_B, 'crop': CROP,
+          'x_shape': list(batch['x'].shape), 'y_shape': list(batch['y'].shape),
+          'dtype': 'bfloat16 compute, float32 parameters',
+          'cli_steps': TRAIN_STEPS, 'cli_seconds': train_s,
+          'resume_seconds': resume_s, 'inference_seconds': infer_s,
+          'epochs': epochs, 'seconds_per_step': per_step,
+          'seconds_all': times, 'steps_per_s': 1 / per_step,
+          'audio_s_per_step': TRAIN_AUDIO_S,
+          'audio_s_trained_per_s': TRAIN_AUDIO_S / per_step,
+          'launches_per_step': counts, 'peak_memory_gib': peak / 2 ** 30,
+          'metrics': {k: float(v) for k, v in metrics.items()}, **share})
+    return counts
+
+
+HAND_KERNELS = ('gn_stats_kernel', 'gn_apply_kernel', 'la_stats_kernel',
+                'la_apply_kernel', 'la_bwd1_kernel', 'la_bwd2_kernel',
+                'mas_kernel')
+
+
 def _family(name):
     """Coarse family of a device kernel, by its name."""
-    for fam, keys in (('hand kernels', ('gn_stats_kernel', 'gn_apply_kernel',
-                                        'la_stats_kernel', 'la_apply_kernel')),
+    for fam, keys in (('hand kernels', HAND_KERNELS),
                       ('convolutions', ('xmma', 'implicit_gemm', 'conv',
                                         'cudnn', 'wgrad', 'dgrad')),
                       ('matmuls', ('gemm', 'cutlass', 'sm90_')),
@@ -440,21 +804,23 @@ def _family(name):
     return 'other'
 
 
-def _device_share(run, call_ms):
-    """Device time by kernel over one synthesis from torch.profiler, against
-    the unprofiled time of one call."""
+def _device_share(run, call_ms, what):
+    """Device time by kernel over one call of ``run`` (a synthesis or a
+    train step) from torch.profiler, against its unprofiled time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         run()
-    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    require(kern, 'synth: the profiler saw no device kernel')
+    # device kernels, not the ranges of user annotations (the optimizer's
+    # step shows as one) that overlap them
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+            and not getattr(e, 'is_user_annotation', False)]
+    require(kern, f'{what}: the profiler saw no device kernel')
     ms = [e.time_range.elapsed_us() / 1e3 for e in kern]
     busy = sum(ms)
     ours = {name: sum(t for e, t in zip(kern, ms) if name in e.name)
-            for name in ('gn_stats_kernel', 'gn_apply_kernel',
-                         'la_stats_kernel', 'la_apply_kernel')}
+            for name in HAND_KERNELS}
     families, top = {}, {}
     for e, t in zip(kern, ms):
         fam = _family(e.name)
@@ -470,6 +836,23 @@ def _device_share(run, call_ms):
 
 
 # ---- main ------------------------------------------------------------------
+
+SOURCES = {'groupnorm_mish': 'gradtts_tpu_torch/csrc/groupnorm_mish.cu',
+           'attention_stats': 'gradtts_tpu_torch/csrc/linear_attention.cu',
+           'attention_apply': 'gradtts_tpu_torch/csrc/linear_attention.cu',
+           'attention_bwd_sweep1':
+               'gradtts_tpu_torch/csrc/linear_attention_bwd.cu',
+           'attention_bwd_sweep2':
+               'gradtts_tpu_torch/csrc/linear_attention_bwd.cu',
+           'maximum_path': 'gradtts_tpu_torch/csrc/mas.cu'}
+# the TPU kernels replaced (MAS: the lax.scan maximum_path, not Pallas)
+REPLACES = {
+    'groupnorm_mish': 'gradtts_tpu/ops/pallas/groupnorm_mish.py:48',
+    'attention_stats': 'gradtts_tpu/ops/pallas/linear_attention.py:58',
+    'attention_apply': 'gradtts_tpu/ops/pallas/linear_attention.py:113',
+    'attention_bwd_sweep1': 'gradtts_tpu/ops/pallas/linear_attention.py:329',
+    'attention_bwd_sweep2': 'gradtts_tpu/ops/pallas/linear_attention.py:381',
+    'maximum_path': 'gradtts_tpu/ops/mas.py:88'}
 
 
 def main():
@@ -496,31 +879,36 @@ def main():
         stats = phase_kernels(device)
         ckpt = phase_slice(device)
         phase_cli(ckpt)
-        counts = phase_synth(device, card)
+        synth_counts = phase_synth(device, card)
+        phase_train_slice(device, ckpt)
+        train_counts = phase_train(device, card)
     except SmokeFailure as e:
         print(f'chip_smoke: FAILED: {e}', file=sys.stderr, flush=True)
         return 1
-    replaces = {
-        'groupnorm_mish': 'gradtts_tpu/ops/pallas/groupnorm_mish.py:48',
-        'attention_stats': 'gradtts_tpu/ops/pallas/linear_attention.py:58',
-        'attention_apply': 'gradtts_tpu/ops/pallas/linear_attention.py:113',
-    }
-    source = {'groupnorm_mish': 'gradtts_tpu_torch/csrc/groupnorm_mish.cu',
-              'attention_stats': 'gradtts_tpu_torch/csrc/linear_attention.cu',
-              'attention_apply': 'gradtts_tpu_torch/csrc/linear_attention.cu'}
     kernels = []
     for name, st in stats.items():
+        # K1-K3 are read on the synthesis path, K4, K5 and MAS on the
+        # training path that runs them
+        path = 'synth' if synth_counts[name] else 'train'
+        sums = st[path]
         kernels.append({
-            'name': name, 'route': 'cuda', 'source': source[name],
-            'replaces': replaces[name], 'launches': counts[name],
-            'max_abs_err': st['max_abs_err'], 'ms': st['ms'],
-            'plain_ms': st['plain_ms'],
-            'bound_ms': max(st['bytes_ms'], st['ops_ms']),
-            'bound_by': 'bytes' if st['bytes_ms'] >= st['ops_ms']
+            'name': name, 'route': 'cuda', 'source': SOURCES[name],
+            'replaces': REPLACES[name],
+            'launches': (synth_counts if path == 'synth'
+                         else train_counts)[name],
+            'max_abs_err': st['max_abs_err'], 'ms': sums['ms'],
+            'plain_ms': sums['plain_ms'],
+            'bound_ms': max(sums['bytes_ms'], sums['ops_ms']),
+            'bound_by': 'bytes' if sums['bytes_ms'] >= sums['ops_ms']
             else 'operations',
             'library_ms': None,
-            'per': 'sum over the launches of one U-Net call, B 8, Ty 768, '
-                   'bf16'})
+            'launches_per_path': {'synth': synth_counts[name],
+                                  'train': train_counts[name]},
+            'per': ('sum over the launches of one U-Net call, B 8, Ty 768, '
+                    'bf16') if path == 'synth' else
+                   ('sum over the launches of one train step, B 16, 172-'
+                    'frame crops, bf16' if name != 'maximum_path' else
+                    'one call at [16, 384, 1024], f32')})
     print(card)
     emit({'kernels': kernels})
     print(f'# total {time.perf_counter() - t_start:.1f} s', file=sys.stderr)

@@ -26,6 +26,19 @@ from gradtts_tpu_torch.text import CMUDict, intersperse_blank, text_to_sequence
 from gradtts_tpu_torch.text.symbols import symbols
 from gradtts_tpu_torch.utils.convert import load_checkpoint
 
+def parse_overrides(pairs) -> dict:
+    """``key=value`` strings -> {key: value}, values read as Python
+    literals where they parse."""
+    overrides = {}
+    for kv in pairs:
+        k, v = kv.split('=', 1)
+        try:
+            overrides[k] = ast.literal_eval(v)
+        except (ValueError, SyntaxError):
+            overrides[k] = v
+    return overrides
+
+
 def resolve_device(cpu: bool) -> torch.device:
     """``cuda`` unless the CPU is asked for; raises without a GPU."""
     if cpu:
@@ -41,7 +54,8 @@ def main(argv=None):
     parser.add_argument('-f', '--file', required=True,
                         help='path to a file with texts to synthesize')
     parser.add_argument('-c', '--checkpoint', required=True,
-                        help='Grad-TTS checkpoint (reference .pt or .npz)')
+                        help='Grad-TTS checkpoint (reference .pt, a trainer '
+                             'ckpt/step_*.pt, or .npz)')
     parser.add_argument('-t', '--timesteps', type=int, default=10)
     parser.add_argument('-s', '--speaker_id', type=int, default=None)
     parser.add_argument('-o', '--output', required=True)
@@ -71,14 +85,7 @@ def main(argv=None):
                          'use python -m gradtts_tpu.cli.inference')
     device = resolve_device(args.cpu)
 
-    overrides = {}
-    for kv in args.set:
-        k, v = kv.split('=', 1)
-        try:
-            overrides[k] = ast.literal_eval(v)
-        except (ValueError, SyntaxError):
-            overrides[k] = v
-    cfg = get_config(args.preset, **overrides)
+    cfg = get_config(args.preset, **parse_overrides(args.set))
 
     print('Initializing Grad-TTS...')
     model = GradTTS.from_config(cfg)

@@ -1,0 +1,51 @@
+"""Training CLI, on the GPU.
+
+Counterpart of gradtts_tpu/cli/train.py (the same flags, without the mesh
+ones). Trains the preset's single-speaker model on its filelist and writes
+``train.log``, TensorBoard scalars and ``ckpt/step_*.pt`` under the log
+directory; a rerun resumes from the latest checkpoint. Runs on ``cuda``
+unless ``--cpu`` is given, and fails when no GPU is present without it.
+Multi-speaker presets are refused (``GradTTS.from_config``).
+
+Usage:
+  python -m gradtts_tpu_torch.cli.train --preset ljspeech [--log-dir DIR]
+      [--epochs N] [--max-steps N] [--batch-size B] [--no-resume] [--cpu]
+      [--set key=value ...]
+"""
+
+import argparse
+import logging
+
+from gradtts_tpu_torch.cli.inference import parse_overrides, resolve_device
+from gradtts_tpu_torch.config import get_config
+from gradtts_tpu_torch.train.loop import train
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser()
+    parser.add_argument('--preset', default='ljspeech')
+    parser.add_argument('--log-dir', default=None)
+    parser.add_argument('--epochs', type=int, default=None)
+    parser.add_argument('--max-steps', type=int, default=None)
+    parser.add_argument('--batch-size', type=int, default=None)
+    parser.add_argument('--no-resume', action='store_true')
+    parser.add_argument('--cpu', action='store_true',
+                        help='run on the CPU instead of the GPU')
+    parser.add_argument('--set', nargs='*', default=[],
+                        help='dotted config overrides, e.g. '
+                             'train.learning_rate=2e-4')
+    args = parser.parse_args(argv)
+    device = resolve_device(args.cpu)
+    logging.basicConfig(level=logging.INFO,
+                        format='%(asctime)s %(name)s %(message)s')
+    overrides = parse_overrides(args.set)
+    if args.batch_size is not None:
+        overrides['train.batch_size'] = args.batch_size
+    cfg = get_config(args.preset, **overrides)
+    return train(cfg, n_epochs=args.epochs, max_steps=args.max_steps,
+                 log_dir=args.log_dir, resume=not args.no_resume,
+                 device=device)
+
+
+if __name__ == '__main__':
+    main()

@@ -92,7 +92,9 @@ class TrainConfig:
     grad_clip_norm: float = 1.0  # applied per submodule (encoder / decoder)
     use_bf16_compute: bool = True
     # The training fields mirror gradtts_tpu.config so that a preset reads
-    # the same in both packages; the port's training slice has not landed.
+    # the same in both packages; the port's trainer (train/loop.py) runs on
+    # one GPU and reads neither the mesh fields, remat_estimator nor
+    # device_mel.
     remat_estimator: bool = False
     device_mel: Optional[bool] = None
 

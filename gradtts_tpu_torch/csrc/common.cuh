@@ -31,7 +31,40 @@ __device__ __forceinline__ void copy_vec16(const T* __restrict__ src, T* __restr
   for (int i = threadIdx.x; i < n_vec; i += blockDim.x) d[i] = s[i];
 }
 
+// Rows [row0, row0 + R) of a row-major [*, C] matrix into an f32 [R, C]
+// shared tile with 16-byte loads, all THREADS threads of the block taking
+// part; rows >= row_end are zero.
+template <typename T, int C, int R, int THREADS>
+__device__ __forceinline__ void load_rows_f32(const T* __restrict__ x, int row0, int row_end,
+                                              float* __restrict__ xs) {
+  constexpr int VEC = 16 / sizeof(T);
+  for (int i = threadIdx.x * VEC; i < R * C; i += THREADS * VEC) {
+    const int row = row0 + i / C;
+    if (row < row_end) {
+      const uint4 raw = *reinterpret_cast<const uint4*>(x + (size_t)row0 * C + i);
+      const T* v = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) xs[i + j] = to_f32(v[j]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) xs[i + j] = 0.f;
+    }
+  }
+}
+
 }  // namespace gtt
+
+// The channel counts of the U-Net's attentions: dispatches a launcher
+// template FN<T, C> on the runtime C, returning its cudaError_t as an int.
+#define GTT_DISPATCH_C(FN, T, ...)                     \
+  switch (C) {                                         \
+    case 16: return (int)FN<T, 16>(__VA_ARGS__);       \
+    case 32: return (int)FN<T, 32>(__VA_ARGS__);       \
+    case 64: return (int)FN<T, 64>(__VA_ARGS__);       \
+    case 128: return (int)FN<T, 128>(__VA_ARGS__);     \
+    case 256: return (int)FN<T, 256>(__VA_ARGS__);     \
+    default: return (int)cudaErrorInvalidValue;        \
+  }
 
 // Every library is built from one .cu file that includes this header once,
 // so each gets exactly one definition of this entry point.

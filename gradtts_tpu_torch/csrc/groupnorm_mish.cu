@@ -169,16 +169,6 @@ cudaError_t launch_apply(const void* x, const void* mask, const void* part, cons
   return cudaGetLastError();
 }
 
-#define GTT_DISPATCH_C(FN, T, ...)                 \
-  switch (C) {                                     \
-    case 16: return (int)FN<T, 16>(__VA_ARGS__);   \
-    case 32: return (int)FN<T, 32>(__VA_ARGS__);   \
-    case 64: return (int)FN<T, 64>(__VA_ARGS__);   \
-    case 128: return (int)FN<T, 128>(__VA_ARGS__); \
-    case 256: return (int)FN<T, 256>(__VA_ARGS__); \
-    default: return (int)cudaErrorInvalidValue;    \
-  }
-
 }  // namespace
 
 // x [B, N, C] (16-byte aligned); part [B, tiles, 2, C] f32. Tile s covers

@@ -45,26 +45,6 @@ constexpr int THREADS = 256;
 constexpr float NEG = -1e30f;   // running-max initial value (Pallas _NEG)
 constexpr int SMEM_LIMIT = 200 * 1024;
 
-// Rows [row0, row0 + R) of a row-major [*, C] matrix into an f32 [R, C]
-// shared tile; rows >= row_end are zero.
-template <typename T, int C>
-__device__ __forceinline__ void load_tile(const T* __restrict__ x, int row0, int row_end,
-                                          float* __restrict__ xs) {
-  constexpr int VEC = 16 / sizeof(T);
-  for (int i = threadIdx.x * VEC; i < R * C; i += THREADS * VEC) {
-    const int row = row0 + i / C;
-    if (row < row_end) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(x + (size_t)row0 * C + i);
-      const T* v = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-      for (int j = 0; j < VEC; ++j) xs[i + j] = to_f32(v[j]);
-    } else {
-#pragma unroll
-      for (int j = 0; j < VEC; ++j) xs[i + j] = 0.f;
-    }
-  }
-}
-
 __host__ __device__ constexpr size_t stats_smem_f32(int C) {
   return ((size_t)R * C + 2 * (size_t)R * H + H) * sizeof(float);
 }
@@ -115,7 +95,7 @@ la_stats_kernel(const T* __restrict__ x, const T* __restrict__ wk_g, const T* __
 
   for (int row0 = row_begin; row0 < row_end; row0 += R) {
     __syncthreads();  // weights staged; previous tile's shared reads done
-    load_tile<T, C>(x, row0, row_end, xs);
+    gtt::load_rows_f32<T, C, R, THREADS>(x, row0, row_end, xs);
     __syncthreads();
     const int nvalid = min(R, row_end - row0);
 
@@ -233,7 +213,7 @@ la_apply_kernel(const T* __restrict__ x, const T* __restrict__ wq_g, const T* __
 
   for (int row0 = row_begin; row0 < row_end; row0 += R) {
     __syncthreads();
-    load_tile<T, C>(x, row0, row_end, xs);
+    gtt::load_rows_f32<T, C, R, THREADS>(x, row0, row_end, xs);
     __syncthreads();
 
     float q[RQ];
@@ -316,16 +296,6 @@ cudaError_t launch_apply(const void* x, const void* wq, const void* ctx2, const 
       static_cast<const float*>(bias), static_cast<T*>(out), N, chunk, w_in_smem);
   return cudaGetLastError();
 }
-
-#define GTT_DISPATCH_C(FN, T, ...)                     \
-  switch (C) {                                         \
-    case 16: return (int)FN<T, 16>(__VA_ARGS__);       \
-    case 32: return (int)FN<T, 32>(__VA_ARGS__);       \
-    case 64: return (int)FN<T, 64>(__VA_ARGS__);       \
-    case 128: return (int)FN<T, 128>(__VA_ARGS__);     \
-    case 256: return (int)FN<T, 256>(__VA_ARGS__);     \
-    default: return (int)cudaErrorInvalidValue;        \
-  }
 
 }  // namespace
 

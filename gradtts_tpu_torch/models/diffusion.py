@@ -3,7 +3,8 @@
 Counterpart of gradtts_tpu/models/diffusion.py (``GradLogPEstimator2d``
 :496, ``ResnetBlock`` :283, ``Block`` :251, ``LinearAttention`` + ``Rezero``
 :351-493, ``SinusoidalPosEmb`` :133, ``get_noise`` :125,
-``reverse_diffusion`` :662), without the TPU layout tricks (frequency
+``reverse_diffusion`` :662, ``forward_diffusion`` :649,
+``diffusion_loss`` :773), without the TPU layout tricks (frequency
 folding and its kernel rearrangements): those are exact re-layouts of the
 math computed here.
 
@@ -12,7 +13,9 @@ memory format, so cuDNN's convolutions and the hand kernels share one
 layout: ``h.permute(0, 2, 3, 1)`` is a contiguous [B, F, T, C] view, which
 the kernels read as [B, N = F*T, C] without a copy. Every ``Block`` ends in
 the GroupNorm+Mish kernel (K1) and every attention is the linear-attention
-kernel pair (K2 + K3). Parameter names follow the reference torch
+kernel pair (K2 + K3), both autograd Functions: the attention's backward is
+the kernel pair K4 + K5, the norm's recomputes its plain version. Parameter
+names follow the reference torch
 ``state_dict`` (``downs.0.2.fn.fn.to_qkv.weight``, ...).
 """
 
@@ -21,7 +24,8 @@ import math
 import torch
 from torch import nn
 
-from gradtts_tpu_torch.models.layers import mish
+from gradtts_tpu_torch.models.layers import (Conv2d, ConvTranspose2d,
+                                             mish)
 from gradtts_tpu_torch.ops.groupnorm_mish import groupnorm_mish
 from gradtts_tpu_torch.ops.linear_attention import linear_attention_rezero
 
@@ -60,7 +64,7 @@ class Block(nn.Module):
 
     def __init__(self, dim: int, dim_out: int, groups: int = 8):
         super().__init__()
-        self.block = nn.ModuleList([nn.Conv2d(dim, dim_out, 3, padding=1),
+        self.block = nn.ModuleList([Conv2d(dim, dim_out, 3, padding=1),
                                     nn.GroupNorm(groups, dim_out)])
 
     def forward(self, x, mask):
@@ -82,7 +86,7 @@ class ResnetBlock(nn.Module):
         self.mlp = nn.Sequential(Mish(), nn.Linear(time_emb_dim, dim_out))
         self.block1 = Block(dim, dim_out, groups)
         self.block2 = Block(dim_out, dim_out, groups)
-        self.res_conv = nn.Conv2d(dim, dim_out, 1) if dim != dim_out \
+        self.res_conv = Conv2d(dim, dim_out, 1) if dim != dim_out \
             else nn.Identity()
 
     def forward(self, x, mask, time_emb):
@@ -101,7 +105,7 @@ class LinearAttention(nn.Module):
         super().__init__()
         self.heads, self.dim_head = heads, dim_head
         hidden = heads * dim_head
-        self.to_qkv = nn.Conv2d(dim, hidden * 3, 1, bias=False)
+        self.to_qkv = Conv2d(dim, hidden * 3, 1, bias=False)
         self.to_out = nn.Conv2d(hidden, dim, 1)
 
 
@@ -128,7 +132,12 @@ class Residual(nn.Module):
         attn = self.fn.fn
         hidden = attn.heads * attn.dim_head
         c = x.shape[1]
-        w = attn.to_qkv.weight.view(3 * hidden, c).t()          # [C, 3H]
+        w = attn.to_qkv.weight
+        # under autograd the f32 weights go in (their grads come back in
+        # f32, as in the JAX package); else the kept cast to x's dtype
+        if not (torch.is_grad_enabled() and w.requires_grad):
+            w = attn.to_qkv.cast('weight', x.dtype)
+        w = w.view(3 * hidden, c).t()                            # [C, 3H]
         y = linear_attention_rezero(
             x.contiguous(memory_format=CL).permute(0, 2, 3, 1),
             w[:, :hidden], w[:, hidden:2 * hidden], w[:, 2 * hidden:],
@@ -140,7 +149,7 @@ class Residual(nn.Module):
 class Downsample(nn.Module):
     def __init__(self, dim: int):
         super().__init__()
-        self.conv = nn.Conv2d(dim, dim, 3, 2, 1)
+        self.conv = Conv2d(dim, dim, 3, 2, 1)
 
     def forward(self, x):
         return self.conv(x)
@@ -149,7 +158,7 @@ class Downsample(nn.Module):
 class Upsample(nn.Module):
     def __init__(self, dim: int):
         super().__init__()
-        self.conv = nn.ConvTranspose2d(dim, dim, 4, 2, 1)
+        self.conv = ConvTranspose2d(dim, dim, 4, 2, 1)
 
     def forward(self, x):
         return self.conv(x)
@@ -159,14 +168,15 @@ class GradLogPEstimator2d(nn.Module):
     """U-Net over (F, T) with [mu, x_t] as input channels (single speaker).
 
     Interface as in the JAX package: x, mu [B, T, F]; mask [B, T]; t [B];
-    returns [B, T, F] in f32. Runs in the dtype of its convolution weights
+    returns [B, T, F] in f32. Runs in ``compute_dtype``
     (``models.tts.set_compute_dtype``); the time MLPs and the GroupNorm
-    parameters stay f32."""
+    stay f32."""
 
     def __init__(self, dim: int, dim_mults=(1, 2, 4), groups: int = 8,
                  n_feats: int = 80, pe_scale: float = 1000.0):
         super().__init__()
         self.pe_scale = pe_scale
+        self.compute_dtype = torch.float32
         self.time_pos_emb = SinusoidalPosEmb(dim)
         self.mlp = nn.Sequential(nn.Linear(dim, dim * 4), Mish(),
                                  nn.Linear(dim * 4, dim))
@@ -192,10 +202,10 @@ class GradLogPEstimator2d(nn.Module):
                 Residual(dim_in),
                 Upsample(dim_in)]))
         self.final_block = Block(dim, dim, groups)
-        self.final_conv = nn.Conv2d(dim, 1, 1)
+        self.final_conv = Conv2d(dim, 1, 1)
 
     def forward(self, x, mask, mu, t):
-        dtype = self.final_conv.weight.dtype
+        dtype = self.compute_dtype
         t_emb = self.mlp(self.time_pos_emb(t, scale=self.pe_scale))
         h = torch.stack([mu.transpose(1, 2), x.transpose(1, 2)], dim=1)
         h = h.to(dtype).contiguous(memory_format=CL)            # [B, 2, F, T]
@@ -253,3 +263,37 @@ def reverse_diffusion(estimator, z, mask, mu, n_timesteps: int, beta_min,
         dxt = 0.5 * (mu - xt - score) * noise_t * h
         xt = (xt - dxt) * mask
     return xt
+
+
+def forward_diffusion(x0, mask, mu, t, z, beta_min, beta_max):
+    """Closed-form sample of q(x_t | x_0) (``forward_diffusion`` :649) with
+    the standard normal draw ``z`` [B, T, F] as an input. mask [B, T, 1].
+    Returns (x_t * mask, z * mask)."""
+    cum_noise = get_noise(t[:, None, None], beta_min, beta_max,
+                          cumulative=True)
+    decay = torch.exp(-0.5 * cum_noise)
+    mean = x0 * decay + mu * (1.0 - decay)
+    xt = mean + z * torch.sqrt(1.0 - torch.exp(-cum_noise))
+    return xt * mask, z * mask
+
+
+def diffusion_loss(estimator, x0, mask, mu, beta_min, beta_max, t=None,
+                   z=None, generator=None, offset: float = 1e-5):
+    """Score-matching loss (``diffusion_loss`` :773). ``t`` [B] (clipped to
+    [offset, 1 - offset]) and ``z`` [B, T, F] are the uniform and normal
+    draws; each that is None is drawn from ``generator``. mask [B, T, 1].
+    Returns (loss, x_t, t)."""
+    if t is None:
+        t = torch.rand(x0.shape[0], generator=generator, dtype=x0.dtype,
+                       device=x0.device)
+    if z is None:
+        z = torch.randn(x0.shape, generator=generator, dtype=x0.dtype,
+                        device=x0.device)
+    t = torch.clamp(t, offset, 1.0 - offset)
+    xt, z = forward_diffusion(x0, mask, mu, t, z, beta_min, beta_max)
+    cum_noise = get_noise(t[:, None, None], beta_min, beta_max,
+                          cumulative=True)
+    est = estimator(xt, mask[..., 0], mu, t)
+    est = est * torch.sqrt(1.0 - torch.exp(-cum_noise))
+    loss = torch.sum((est + z) ** 2) / (torch.sum(mask) * x0.shape[-1])
+    return loss, xt, t

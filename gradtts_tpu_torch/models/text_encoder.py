@@ -8,8 +8,12 @@ takes them; parameter names follow the reference torch ``state_dict``
 (``encoder.prenet.conv_layers.0.weight``, ...). The JAX package has no
 kernel here, so the attention is plain matmul + softmax: the relative
 position logits and values are added to the scores and to the output, which
-``scaled_dot_product_attention`` cannot express. Dropout is omitted: this
-slice runs inference only.
+``scaled_dot_product_attention`` cannot express. Dropout sits where the
+JAX package has it (prenet 0.5; ``p_dropout`` in the duration predictor, on
+the attention probabilities, inside the FFN and on each sub-layer output),
+active under ``train()`` only and drawn from the ``generator`` passed down
+from :meth:`TextEncoder.forward`. The duration predictor reads a detached
+copy of the encoder output (``stop_gradient``, :511).
 """
 
 import math
@@ -17,26 +21,32 @@ import math
 import torch
 from torch import nn
 
-from gradtts_tpu_torch.models.layers import ChannelLayerNorm
+from gradtts_tpu_torch.models.layers import (ChannelLayerNorm, Conv1d,
+                                             dropout)
 from gradtts_tpu_torch.ops.seq import sequence_mask
 
 
 class ConvReluNorm(nn.Module):
     """Conv prenet with a residual projection (``ConvReluNorm`` :24)."""
 
-    def __init__(self, channels: int, kernel_size: int = 5, n_layers: int = 3):
+    def __init__(self, channels: int, kernel_size: int = 5, n_layers: int = 3,
+                 p_dropout: float = 0.5):
         super().__init__()
+        self.p_dropout = p_dropout
         self.conv_layers = nn.ModuleList(
-            nn.Conv1d(channels, channels, kernel_size, padding=kernel_size // 2)
+            Conv1d(channels, channels, kernel_size, padding=kernel_size // 2)
             for _ in range(n_layers))
         self.norm_layers = nn.ModuleList(
             ChannelLayerNorm(channels) for _ in range(n_layers))
-        self.proj = nn.Conv1d(channels, channels, 1)
+        self.proj = Conv1d(channels, channels, 1)
+        nn.init.zeros_(self.proj.weight)     # the prenet starts as identity
+        nn.init.zeros_(self.proj.bias)
 
-    def forward(self, x, x_mask):
+    def forward(self, x, x_mask, generator=None):
         x_org = x
         for conv, norm in zip(self.conv_layers, self.norm_layers):
             x = torch.relu(norm(conv(x * x_mask)))
+            x = dropout(x, self.p_dropout, self.training, generator)
         return (x_org + self.proj(x)) * x_mask
 
 
@@ -44,20 +54,24 @@ class DurationPredictor(nn.Module):
     """2x (conv -> relu -> LN) -> 1x1 conv (``DurationPredictor`` :51)."""
 
     def __init__(self, in_channels: int, filter_channels: int,
-                 kernel_size: int):
+                 kernel_size: int, p_dropout: float = 0.0):
         super().__init__()
+        self.p_dropout = p_dropout
         pad = kernel_size // 2
-        self.conv_1 = nn.Conv1d(in_channels, filter_channels, kernel_size,
+        self.conv_1 = Conv1d(in_channels, filter_channels, kernel_size,
                                 padding=pad)
         self.norm_1 = ChannelLayerNorm(filter_channels)
-        self.conv_2 = nn.Conv1d(filter_channels, filter_channels, kernel_size,
+        self.conv_2 = Conv1d(filter_channels, filter_channels, kernel_size,
                                 padding=pad)
         self.norm_2 = ChannelLayerNorm(filter_channels)
-        self.proj = nn.Conv1d(filter_channels, 1, 1)
+        self.proj = Conv1d(filter_channels, 1, 1)
 
-    def forward(self, x, x_mask):
+    def forward(self, x, x_mask, generator=None):
+        p, training = self.p_dropout, self.training
         x = self.norm_1(torch.relu(self.conv_1(x * x_mask)))
+        x = dropout(x, p, training, generator)
         x = self.norm_2(torch.relu(self.conv_2(x * x_mask)))
+        x = dropout(x, p, training, generator)
         return self.proj(x * x_mask) * x_mask
 
 
@@ -94,21 +108,23 @@ class MultiHeadAttention(nn.Module):
     all heads (``_mha_apply`` :321). Scores, softmax and both value
     contractions run in f32 whatever the compute dtype."""
 
-    def __init__(self, channels: int, n_heads: int, window_size: int):
+    def __init__(self, channels: int, n_heads: int, window_size: int,
+                 p_dropout: float = 0.0):
         super().__init__()
         self.n_heads = n_heads
+        self.p_dropout = p_dropout
         self.window_size = window_size
         d = channels // n_heads
-        self.conv_q = nn.Conv1d(channels, channels, 1)
-        self.conv_k = nn.Conv1d(channels, channels, 1)
-        self.conv_v = nn.Conv1d(channels, channels, 1)
-        self.conv_o = nn.Conv1d(channels, channels, 1)
+        self.conv_q = Conv1d(channels, channels, 1)
+        self.conv_k = Conv1d(channels, channels, 1)
+        self.conv_v = Conv1d(channels, channels, 1)
+        self.conv_o = Conv1d(channels, channels, 1)
         self.emb_rel_k = nn.Parameter(torch.randn(1, 2 * window_size + 1, d)
                                       * d ** -0.5)
         self.emb_rel_v = nn.Parameter(torch.randn(1, 2 * window_size + 1, d)
                                       * d ** -0.5)
 
-    def forward(self, x, attn_mask):
+    def forward(self, x, attn_mask, generator=None):
         b, c, t = x.shape
         h, d = self.n_heads, c // self.n_heads
 
@@ -123,7 +139,8 @@ class MultiHeadAttention(nn.Module):
         scores = scores + relative_to_absolute(
             q @ key_rel.transpose(1, 2)[None]) / math.sqrt(d)
         scores = scores.masked_fill(attn_mask == 0, -1e4)
-        p_attn = torch.softmax(scores, dim=-1)
+        p_attn = dropout(torch.softmax(scores, dim=-1), self.p_dropout,
+                         self.training, generator)
         value_rel = relative_embeddings(self.emb_rel_v.float(), t,
                                         self.window_size)
         out = p_attn @ v + absolute_to_relative(p_attn) @ value_rel[None]
@@ -134,16 +151,19 @@ class MultiHeadAttention(nn.Module):
 class FFN(nn.Module):
     """conv -> relu -> conv with masking (``_ffn_apply`` :373)."""
 
-    def __init__(self, channels: int, filter_channels: int, kernel_size: int):
+    def __init__(self, channels: int, filter_channels: int, kernel_size: int,
+                 p_dropout: float = 0.0):
         super().__init__()
+        self.p_dropout = p_dropout
         pad = kernel_size // 2
-        self.conv_1 = nn.Conv1d(channels, filter_channels, kernel_size,
+        self.conv_1 = Conv1d(channels, filter_channels, kernel_size,
                                 padding=pad)
-        self.conv_2 = nn.Conv1d(filter_channels, channels, kernel_size,
+        self.conv_2 = Conv1d(filter_channels, channels, kernel_size,
                                 padding=pad)
 
-    def forward(self, x, x_mask):
+    def forward(self, x, x_mask, generator=None):
         x = torch.relu(self.conv_1(x * x_mask))
+        x = dropout(x, self.p_dropout, self.training, generator)
         return self.conv_2(x * x_mask) * x_mask
 
 
@@ -151,59 +171,67 @@ class Encoder(nn.Module):
     """Stack of (rel-pos MHA + LN, FFN + LN) layers (``Encoder`` :390)."""
 
     def __init__(self, channels: int, filter_channels: int, n_heads: int,
-                 n_layers: int, kernel_size: int, window_size: int):
+                 n_layers: int, kernel_size: int, window_size: int,
+                 p_dropout: float = 0.0):
         super().__init__()
+        self.p_dropout = p_dropout
         self.attn_layers = nn.ModuleList(
-            MultiHeadAttention(channels, n_heads, window_size)
+            MultiHeadAttention(channels, n_heads, window_size, p_dropout)
             for _ in range(n_layers))
         self.norm_layers_1 = nn.ModuleList(
             ChannelLayerNorm(channels) for _ in range(n_layers))
         self.ffn_layers = nn.ModuleList(
-            FFN(channels, filter_channels, kernel_size)
+            FFN(channels, filter_channels, kernel_size, p_dropout)
             for _ in range(n_layers))
         self.norm_layers_2 = nn.ModuleList(
             ChannelLayerNorm(channels) for _ in range(n_layers))
 
-    def forward(self, x, x_mask):
+    def forward(self, x, x_mask, generator=None):
         attn_mask = x_mask[:, :, None, :] * x_mask[:, :, :, None]  # [B,1,T,T]
+        p, training = self.p_dropout, self.training
         for attn, ln1, ffn, ln2 in zip(self.attn_layers, self.norm_layers_1,
                                        self.ffn_layers, self.norm_layers_2):
             x = x * x_mask
-            x = ln1(x + attn(x, attn_mask))
-            x = ln2(x + ffn(x, x_mask))
+            y = dropout(attn(x, attn_mask, generator), p, training, generator)
+            x = ln1(x + y)
+            y = dropout(ffn(x, x_mask, generator), p, training, generator)
+            x = ln2(x + y)
         return x * x_mask
 
 
 class TextEncoder(nn.Module):
     """Full text encoder (``TextEncoder`` :457), fork wiring: no speaker
-    input. The trunk runs in the dtype of its convolution weights (see
+    input. The trunk runs in ``compute_dtype`` (see
     ``models.tts.set_compute_dtype``); the output heads ``proj_m`` and
     ``proj_w`` run in f32 whatever that dtype is (:504-510)."""
 
     def __init__(self, n_vocab: int, n_feats: int, n_channels: int,
                  filter_channels: int, filter_channels_dp: int, n_heads: int,
-                 n_layers: int, kernel_size: int, window_size: int):
+                 n_layers: int, kernel_size: int, window_size: int,
+                 p_dropout: float = 0.1):
         super().__init__()
         self.n_channels = n_channels
+        self.compute_dtype = torch.float32
         self.emb = nn.Embedding(n_vocab, n_channels)
         self.prenet = ConvReluNorm(n_channels, kernel_size=5, n_layers=3)
         self.encoder = Encoder(n_channels, filter_channels, n_heads, n_layers,
-                               kernel_size, window_size)
-        self.proj_m = nn.Conv1d(n_channels, n_feats, 1)
+                               kernel_size, window_size, p_dropout)
+        self.proj_m = Conv1d(n_channels, n_feats, 1)
         self.proj_w = DurationPredictor(n_channels, filter_channels_dp,
-                                        kernel_size)
+                                        kernel_size, p_dropout)
 
-    def forward(self, x, x_lengths):
+    def forward(self, x, x_lengths, generator=None):
         """x [B, Tx] int ids; x_lengths [B]. Returns f32 (mu_x [B, Tx, F],
-        logw [B, Tx, 1], x_mask [B, Tx, 1])."""
-        dtype = self.prenet.proj.weight.dtype
+        logw [B, Tx, 1], x_mask [B, Tx, 1]). ``generator`` draws the
+        dropout masks under ``train()``."""
+        dtype = self.compute_dtype
         h = (self.emb(x) * math.sqrt(self.n_channels)).transpose(1, 2)
         h = h.to(dtype)                                         # [B, C, T]
         x_mask = sequence_mask(x_lengths, x.shape[1])[:, None, :].to(dtype)
-        h = self.prenet(h, x_mask)
-        h = self.encoder(h, x_mask).float()
+        h = self.prenet(h, x_mask, generator)
+        h = self.encoder(h, x_mask, generator).float()
         x_mask = x_mask.float()
         mu = self.proj_m(h) * x_mask
-        logw = self.proj_w(h, x_mask)
+        logw = self.proj_w(h.detach(), x_mask, generator)
         return (mu.transpose(1, 2), logw.transpose(1, 2),
                 x_mask.transpose(1, 2))

@@ -1,22 +1,25 @@
-"""GradTTS: the text-to-mel model and its synthesis.
+"""GradTTS: the text-to-mel model, its synthesis and its training losses.
 
 Counterpart of gradtts_tpu/models/tts.py (``GradTTS`` :33, ``synthesize``
-:145-211). Submodules ``encoder`` and ``decoder.estimator`` carry the
+:145-211, ``_log_prior_grid`` :214, ``compute_loss`` :234-301). Submodules ``encoder`` and ``decoder.estimator`` carry the
 reference torch ``state_dict`` layout, so a reference ``.pt`` file loads
 with ``load_state_dict(strict=True)``. Layouts at the public functions are
 the JAX package's: text ids [B, Tx], mels [B, Ty, F].
 """
 
-from typing import NamedTuple
+import math
+from typing import NamedTuple, Optional
 
 import torch
 from torch import nn
 
 from gradtts_tpu_torch.config import GradTTSConfig
-from gradtts_tpu_torch.models.diffusion import Diffusion, reverse_diffusion
-from gradtts_tpu_torch.models.layers import ChannelLayerNorm
+from gradtts_tpu_torch.models.diffusion import (Diffusion, diffusion_loss,
+                                                reverse_diffusion)
 from gradtts_tpu_torch.models.text_encoder import TextEncoder
-from gradtts_tpu_torch.ops.seq import generate_path, sequence_mask
+from gradtts_tpu_torch.ops.mas import maximum_path
+from gradtts_tpu_torch.ops.seq import (duration_loss, generate_path,
+                                       sequence_mask)
 
 
 class GradTTS(nn.Module):
@@ -28,13 +31,13 @@ class GradTTS(nn.Module):
                  n_heads: int = 2, n_enc_layers: int = 6, enc_kernel: int = 3,
                  window_size: int = 4, n_feats: int = 80, dec_dim: int = 64,
                  beta_min: float = 0.05, beta_max: float = 20.0,
-                 pe_scale: float = 1000.0):
+                 pe_scale: float = 1000.0, enc_dropout: float = 0.1):
         super().__init__()
         self.n_feats = n_feats
         self.encoder = TextEncoder(n_vocab, n_feats, n_enc_channels,
                                    filter_channels, filter_channels_dp,
                                    n_heads, n_enc_layers, enc_kernel,
-                                   window_size)
+                                   window_size, enc_dropout)
         self.decoder = Diffusion(n_feats, dec_dim, beta_min, beta_max,
                                  pe_scale)
 
@@ -49,11 +52,12 @@ class GradTTS(nn.Module):
         return cls(cfg.n_vocab, e.n_enc_channels, e.filter_channels,
                    e.filter_channels_dp, e.n_heads, e.n_enc_layers,
                    e.enc_kernel, e.window_size, cfg.data.n_feats, d.dec_dim,
-                   d.beta_min, d.beta_max, d.pe_scale)
+                   d.beta_min, d.beta_max, d.pe_scale, e.enc_dropout)
 
-    def encode(self, x, x_lengths):
-        """-> f32 (mu_x [B, Tx, F], logw [B, Tx, 1], x_mask [B, Tx, 1])."""
-        return self.encoder(x, x_lengths)
+    def encode(self, x, x_lengths, generator=None):
+        """-> f32 (mu_x [B, Tx, F], logw [B, Tx, 1], x_mask [B, Tx, 1]).
+        ``generator`` draws the dropout masks under ``train()``."""
+        return self.encoder(x, x_lengths, generator)
 
     def estimate(self, x_t, mask, mu, t):
         """Score estimate [B, Ty, F] (f32) for x_t, mu [B, Ty, F], mask
@@ -61,21 +65,16 @@ class GradTTS(nn.Module):
         return self.decoder.estimator(x_t, mask, mu, t)
 
 
-_F32_IN_COMPUTE = (nn.Linear, nn.GroupNorm, nn.Embedding, ChannelLayerNorm)
-
-
 def set_compute_dtype(model: GradTTS, dtype: torch.dtype) -> GradTTS:
-    """Casts in place the weights that the JAX package runs in its compute
-    dtype: the convolutions of the encoder trunk and of the U-Net, and the
-    U-Net's attention projections. Embeddings, norms, the time MLPs, the
-    ReZero gains and the encoder's output heads stay f32, as there."""
-    heads = {model.encoder.proj_m, *model.encoder.proj_w.modules()}
-    for module in [*model.encoder.modules(), *model.decoder.modules()]:
-        if module in heads or isinstance(module, _F32_IN_COMPUTE):
-            continue
-        for name, p in module.named_parameters(recurse=False):
-            if name in ('weight', 'bias'):
-                p.data = p.data.to(dtype)
+    """Runs the model's compute in ``dtype`` where the JAX package runs its
+    compute dtype: the convolutions of the encoder trunk and of the U-Net,
+    and the U-Net's attention projections (their f32 weights are cast at
+    each call, see ``models/layers.py``). Embeddings, norms, the time MLPs,
+    the ReZero gains and the encoder's output heads stay f32, as there.
+    Every parameter stays f32, so training and synthesis share this one
+    way to run bf16."""
+    model.encoder.compute_dtype = dtype
+    model.decoder.estimator.compute_dtype = dtype
     return model
 
 
@@ -121,3 +120,77 @@ def synthesize(model: GradTTS, x, x_lengths, n_timesteps: int,
                             model.decoder.beta_max)
     return SynthesisResult(mu_y * y_mask, dec * y_mask, attn, y_lengths,
                            y_mask)
+
+
+def _log_prior_grid(y, mu_x):
+    """log N(y_frame; mu_token, I) for every (token, frame) pair as one
+    matmul (``_log_prior_grid`` :214). y [B, Ty, F], mu_x [B, Tx, F] ->
+    [B, Tx, Ty] f32."""
+    const = -0.5 * math.log(2 * math.pi) * y.shape[-1]
+    cross = mu_x @ y.transpose(1, 2)
+    y_sq = -0.5 * torch.sum(y ** 2, dim=-1)                     # [B, Ty]
+    mu_sq = -0.5 * torch.sum(mu_x ** 2, dim=-1)                 # [B, Tx]
+    return cross + y_sq[:, None, :] + mu_sq[:, :, None] + const
+
+
+class LossResult(NamedTuple):
+    dur_loss: torch.Tensor
+    prior_loss: torch.Tensor
+    diff_loss: torch.Tensor
+    attn: torch.Tensor             # [B, Tx, Ty or out_size], no grad
+
+
+def crop_offsets(y_lengths, out_size: int, generator=None):
+    """Per-item crop start, drawn as ``compute_loss`` :266-269 draws it:
+    a 30-bit integer modulo max(y_length - out_size, 1), 0 where the item
+    is no longer than the crop."""
+    max_offset = (y_lengths - out_size).clamp_min(0)
+    rand = torch.randint(0, 1 << 30, y_lengths.shape, generator=generator,
+                         device=y_lengths.device)
+    return torch.where(max_offset > 0, rand % max_offset.clamp_min(1), 0)
+
+
+def compute_loss(model: GradTTS, x, x_lengths, y, y_lengths,
+                 out_size: Optional[int] = None, offset=None, t=None, z=None,
+                 generator=None) -> LossResult:
+    """Duration + prior + diffusion losses (``compute_loss`` :234).
+
+    x [B, Tx] ids; y [B, Ty, F] mels. The random draws are inputs: the crop
+    ``offset`` [B] (used when ``out_size`` < Ty), the diffusion time ``t``
+    [B] and noise ``z`` [B, out_size or Ty, F]; each that is None is drawn
+    from ``generator``, which also draws the encoder's dropout masks under
+    ``train()``. The alignment is MAS on the log-prior grid, without grad;
+    the per-item crop is one batched gather."""
+    mu_x, logw, x_mask = model.encode(x, x_lengths, generator)
+    y_max_length = y.shape[1]
+    y_mask = sequence_mask(y_lengths, y_max_length)[..., None].to(x_mask)
+    attn_mask = x_mask[:, :, None, 0] * y_mask[:, None, :, 0]  # [B, Tx, Ty]
+    with torch.no_grad():
+        attn = maximum_path(_log_prior_grid(y, mu_x).contiguous(),
+                            attn_mask.contiguous())
+
+    logw_hat = torch.log(1e-8 + torch.sum(attn, dim=-1))[..., None] * x_mask
+    dur = duration_loss(logw, logw_hat, x_lengths)
+
+    if out_size is not None and out_size < y_max_length:
+        if offset is None:
+            offset = crop_offsets(y_lengths, out_size, generator)
+        # as dynamic_slice, a start past Ty - out_size is clamped
+        offset = offset.clamp(0, y_max_length - out_size)
+        frames = offset[:, None] + torch.arange(out_size, device=y.device)
+        y = torch.gather(y, 1, frames[:, :, None].expand(-1, -1, y.shape[2]))
+        attn = torch.gather(attn, 2,
+                            frames[:, None, :].expand(-1, attn.shape[1], -1))
+        y_mask = sequence_mask(y_lengths.clamp_max(out_size),
+                               out_size)[..., None].to(y_mask)
+        y = y * y_mask
+        attn = attn * y_mask[:, None, :, 0]
+
+    mu_y = torch.einsum('bxy,bxf->byf', attn, mu_x)
+    diff, _, _ = diffusion_loss(model.decoder.estimator, y, y_mask, mu_y,
+                                model.decoder.beta_min, model.decoder.beta_max,
+                                t=t, z=z, generator=generator)
+    prior = torch.sum(0.5 * ((y - mu_y) ** 2 + math.log(2 * math.pi))
+                      * y_mask)
+    prior = prior / (torch.sum(y_mask) * model.n_feats)
+    return LossResult(dur, prior, diff, attn)

@@ -56,6 +56,18 @@ SIGNATURES = {
         # x, wq, ctx2, bias, out, B, N, C, chunk, S, dtype, stream
         'gtt_la_apply': (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     },
+    'linear_attention_bwd': {
+        # x, dy, wq, afullt, apre, bout, da_part, dwq_part, db_part,
+        # dgv_part, B, N, C, chunk, S, dtype, stream
+        'gtt_la_bwd1': (_P,) * 10 + (_I,) * 6 + (_P,),
+        # x, dy, wk, wv, afullt, wqkv_t, m, dctx_t, dctx, dden, dx,
+        # dwkv_part, B, N, C, chunk, S, dtype, stream
+        'gtt_la_bwd2': (_P,) * 12 + (_I,) * 6 + (_P,),
+    },
+    'mas': {
+        # value, mask, decision, path, B, Tx, Ty, stream
+        'gtt_mas': (_P, _P, _P, _P, _I, _I, _I, _P),
+    },
 }
 
 _loaded = {}

@@ -62,19 +62,10 @@ def _check(x, mask, gamma, beta, groups):
     for t in (mask, gamma, beta):
         if t.device != x.device:
             raise ValueError('groupnorm_mish: all inputs must be on one device')
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, gamma, beta)):
-        raise NotImplementedError(
-            'groupnorm_mish: the CUDA kernel has no backward yet; call it '
-            'under torch.no_grad()')
 
 
-def groupnorm_mish(x, mask, gamma, beta, groups: int = 8, eps: float = 1e-5):
-    """x [B, F, T, C] contiguous; mask [B, 1, T, 1] in x's dtype; gamma,
-    beta [C] f32. CPU tensors take :func:`groupnorm_mish_plain`; CUDA
-    tensors launch the kernel (two passes) or raise."""
-    if x.device.type == 'cpu':
-        return groupnorm_mish_plain(x, mask, gamma, beta, groups, eps)
+def _launch(x, mask, gamma, beta, groups, eps):
+    """The kernel's two passes on CUDA tensors, counted as one launch."""
     _check(x, mask, gamma, beta, groups)
     B, F, T, C = x.shape
     N = F * T
@@ -95,6 +86,47 @@ def groupnorm_mish(x, mask, gamma, beta, groups: int = 8, eps: float = 1e-5):
         eps, dtype, stream), 'gtt_gn_apply')
     groupnorm_mish.launches += 1
     return out
+
+
+def _forward(x, mask, gamma, beta, groups, eps):
+    if x.device.type == 'cpu':
+        return groupnorm_mish_plain(x, mask, gamma, beta, groups, eps)
+    return _launch(x, mask, gamma, beta, groups, eps)
+
+
+class GroupNormMishFn(torch.autograd.Function):
+    """Forward: the kernel on CUDA tensors, the plain version on CPU ones.
+    Backward: recomputes :func:`groupnorm_mish_plain` and differentiates it,
+    as the JAX package's ``_bwd`` (:209-215) recomputes ``_reference``. The
+    mask gets no grad."""
+
+    @staticmethod
+    def forward(ctx, x, mask, gamma, beta, groups, eps):
+        ctx.save_for_backward(x, mask, gamma, beta)
+        ctx.groups, ctx.eps = groups, eps
+        return _forward(x, mask, gamma, beta, groups, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, mask, gamma, beta = ctx.saved_tensors
+        inputs = [t.detach().requires_grad_() for t in (x, gamma, beta)]
+        with torch.enable_grad():
+            y = groupnorm_mish_plain(inputs[0], mask, inputs[1], inputs[2],
+                                     ctx.groups, ctx.eps)
+            dx, dgamma, dbeta = torch.autograd.grad(y, inputs, dy)
+        return dx, None, dgamma, dbeta, None, None
+
+
+def groupnorm_mish(x, mask, gamma, beta, groups: int = 8, eps: float = 1e-5):
+    """x [B, F, T, C] contiguous; mask [B, 1, T, 1] in x's dtype; gamma,
+    beta [C] f32. CPU tensors take :func:`groupnorm_mish_plain`; CUDA
+    tensors launch the kernel (two passes) or raise. Differentiable in x,
+    gamma and beta, through :class:`GroupNormMishFn` where a grad is
+    needed."""
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (x, gamma, beta)):
+        return GroupNormMishFn.apply(x, mask, gamma, beta, groups, eps)
+    return _forward(x, mask, gamma, beta, groups, eps)
 
 
 groupnorm_mish.launches = 0

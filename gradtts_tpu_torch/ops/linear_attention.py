@@ -1,10 +1,14 @@
-"""Linear attention + ReZero residual forward (kernels K2 and K3 of the port).
+"""Linear attention + ReZero residual, forward and backward (kernels K2-K5
+of the port).
 
-Counterpart of gradtts_tpu/ops/pallas/linear_attention.py: ``_stats_kernel``
-(:58) and ``_apply_kernel`` (:113) driven by ``_forward`` (:146), whose
-result equals the jnp twin ``_reference`` (:227). The CUDA kernels are in
-``csrc/linear_attention.cu``; its source says what bounds them on the H100
-and how they are laid out.
+Counterpart of gradtts_tpu/ops/pallas/linear_attention.py: the forward
+``_stats_kernel`` (:58) and ``_apply_kernel`` (:113) driven by ``_forward``
+(:146), whose result equals the jnp twin ``_reference`` (:227); the
+streaming backward ``_bwd_sweep1_kernel`` (:329) and ``_bwd_sweep2_kernel``
+(:381) driven by ``_backward_pallas`` (:444), phases=1 layout. The CUDA
+kernels are in ``csrc/linear_attention.cu`` (K2, K3) and
+``csrc/linear_attention_bwd.cu`` (K4, K5); their sources say what bounds
+them on the H100 and how they are laid out.
 
 For x [B, N = F*T, C] and H = heads * dim_head:
 
@@ -14,7 +18,15 @@ For x [B, N = F*T, C] and H = heads * dim_head:
   ``merge_stats``: merges the splits with the same exp(m_s - m) rescale;
   ``fold_context``: head block-diagonal mask, / den, @ Wout, * g -> ctx2
      [B, H, C], and bias = b_out * g (as ``_forward`` :195-200);
-  K3 ``attention_apply``: out = x + (x Wq rounded to x's dtype) ctx2 + bias.
+  K3 ``attention_apply``: out = x + (x Wq rounded to x's dtype) ctx2 + bias;
+  K4 ``attention_bwd_sweep1``: dA = q^T dy per batch item, and over the
+     batch dWq = x^T (dy A_full^T), db = sum dy, dgv = sum dy (q A_pre + b);
+  K5 ``attention_bwd_sweep2``: recomputes exp(x Wk - m) and x Wv, emits
+     dx = dy + dq Wq^T + dk Wk^T + dv Wv^T and sums dWk, dWv over the batch;
+     dctx is taken as block diagonal over the heads.
+
+:class:`LinearAttentionRezeroFn` ties them together for autograd; the host
+algebra between K4 and K5 is ``_backward_pallas`` :459-478 and :515-538.
 """
 
 import torch
@@ -22,17 +34,42 @@ import torch
 from gradtts_tpu_torch.ops import _build
 
 HIDDEN = 128               # heads * dim_head the CUDA kernels are built for
-_ROWS = 32                 # csrc/linear_attention.cu: rows per tile R
+DIM_HEAD = 32              # dim_head K5 is built for (csrc: DH)
+_ROWS = 32                 # csrc/linear_attention*.cu: rows per tile R
 _TARGET_BLOCKS = 2 * 132   # two blocks per SM of an H100
 _CHANNELS = (16, 32, 64, 128, 256)
 _NEG = -1e30               # running-max start value (Pallas _NEG)
 
 
 def split_chunk(B: int, N: int) -> int:
-    """Rows per split: enough splits to fill the card at batch B, each a
-    whole number of the kernels' row tiles."""
+    """Rows per split of K2/K3: enough splits to fill the card at batch B,
+    each a whole number of the kernels' row tiles."""
     n_splits = max(1, min(-(-_TARGET_BLOCKS // B), -(-N // _ROWS)))
     return -(-N // (n_splits * _ROWS)) * _ROWS
+
+
+def bwd_roles(kernel: str, C: int) -> int:
+    """Blocks per split and batch item of K4 / K5 (csrc/linear_attention_bwd.cu
+    Bwd1::ROLES, Bwd2::ROLES): each owns one slice of the accumulators."""
+    return 2 * max(1, C // 128) if kernel == 'sweep1' \
+        else 1 + HIDDEN // DIM_HEAD
+
+
+def bwd_split_chunk(B: int, N: int, C: int, itemsize: int, roles: int) -> int:
+    """Rows per split of K4/K5. Each split of each batch item writes f32
+    partial sums of 2*C*H values (dA and dWq, or dWk and dWv), so the
+    splits fill the card only as far as those partials stay under half the
+    bytes of x: B*S*C*H*8 <= B*N*C*itemsize / 2."""
+    cap = max(1, N * itemsize // (16 * HIDDEN))
+    n_splits = max(1, min(-(-_TARGET_BLOCKS // (B * roles)),
+                          -(-N // _ROWS), cap))
+    return -(-N // (n_splits * _ROWS)) * _ROWS
+
+
+def head_blockdiag(H: int, dim_head: int, device) -> torch.Tensor:
+    """[H, H] f32 mask of the per-head diagonal blocks."""
+    head = torch.arange(H, device=device) // dim_head
+    return (head[:, None] == head[None, :]).float()
 
 
 # ---- plain PyTorch versions ----------------------------------------------
@@ -63,6 +100,44 @@ def attention_apply_plain(x, w_q, ctx2, bias):
     return out.to(x.dtype)
 
 
+def attention_bwd_sweep1_plain(x, dy, w_q, a_full_t, a_pre, b_out):
+    """x, dy [B, N, C]; w_q [C, H]; a_full_t [B, C, H]; a_pre [B, H, C], all
+    in x's dtype; b_out [C] f32. Returns f32 (dA [B, H, C], dWq [C, H],
+    db [C], dgv [C]) with the Pallas kernel's rounding points: q and dq are
+    rounded to x's dtype before their second products (:357, :365)."""
+    dt = x.dtype
+    xf, dyf = x.float(), dy.float()
+    q = xf @ w_q.float()                                    # [B, N, H]
+    da = q.transpose(1, 2) @ dyf
+    o_pre = q.to(dt).float() @ a_pre.float()                # [B, N, C]
+    dgv = (dyf * (o_pre + b_out.float())).sum(dim=(0, 1))
+    dq = (dyf @ a_full_t.float()).to(dt).float()            # [B, N, H]
+    dwq = (xf.transpose(1, 2) @ dq).sum(dim=0)
+    return da, dwq, dyf.sum(dim=(0, 1)), dgv
+
+
+def attention_bwd_sweep2_plain(x, dy, w_q, w_k, w_v, m, a_full_t, dctx,
+                               dden, dim_head: int = DIM_HEAD):
+    """x, dy [B, N, C]; w_q, w_k, w_v [C, H]; a_full_t [B, C, H]; dctx
+    [B, H, H], all in x's dtype; m, dden [B, H] f32. dctx is read as block
+    diagonal over heads of ``dim_head`` (entries off the blocks are
+    ignored). Returns (dx [B, N, C] in x's dtype, dWk [C, H] f32, dWv
+    [C, H] f32) with the Pallas kernel's rounding points (:404-410)."""
+    dt = x.dtype
+    xf, dyf = x.float(), dy.float()
+    dctx = dctx.float() * head_blockdiag(dctx.shape[-1], dim_head, x.device)
+    ek = torch.exp(xf @ w_k.float() - m[:, None, :])        # [B, N, H]
+    v = (xf @ w_v.float()).to(dt).float()
+    dek = v @ dctx.transpose(1, 2) + dden[:, None, :]
+    dk = (ek * dek).to(dt).float()
+    dv = (ek.to(dt).float() @ dctx).to(dt).float()
+    dq = (dyf @ a_full_t.float()).to(dt).float()
+    dx = (dyf + dq @ w_q.float().t() + dk @ w_k.float().t()
+          + dv @ w_v.float().t())
+    xt = xf.transpose(1, 2)
+    return dx.to(dt), (xt @ dk).sum(dim=0), (xt @ dv).sum(dim=0)
+
+
 # ---- the kernels' wrappers -------------------------------------------------
 
 
@@ -82,11 +157,6 @@ def _check(name, x, tensors, dtypes):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f'{name}: {label} must be contiguous and '
                              '16-byte aligned')
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in [x] + list(tensors.values())):
-        raise NotImplementedError(
-            f'{name}: the CUDA kernel has no backward yet; call it under '
-            'torch.no_grad()')
 
 
 def attention_stats(x, w_k, w_v, chunk: int):
@@ -137,6 +207,82 @@ def attention_apply(x, w_q, ctx2, bias):
 attention_apply.launches = 0
 
 
+def attention_bwd_sweep1(x, dy, w_q, a_full_t, a_pre, b_out):
+    """K4. Same contract as :func:`attention_bwd_sweep1_plain`; CPU tensors
+    take the plain version, CUDA tensors launch the kernel or raise. The
+    per-split partial sums are added up here, in a fixed order."""
+    if x.device.type == 'cpu':
+        return attention_bwd_sweep1_plain(x, dy, w_q, a_full_t, a_pre, b_out)
+    B, N, C = x.shape
+    H = HIDDEN
+    _check('attention_bwd_sweep1', x,
+           {'dy': dy, 'w_q': w_q, 'a_full_t': a_full_t, 'a_pre': a_pre,
+            'b_out': b_out},
+           [((B, N, C), x.dtype), ((C, H), x.dtype), ((B, C, H), x.dtype),
+            ((B, H, C), x.dtype), ((C,), torch.float32)])
+    chunk = bwd_split_chunk(B, N, C, x.element_size(), bwd_roles('sweep1', C))
+    S = -(-N // chunk)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    da = torch.empty((B, S, H, C), **f32)
+    dwq = torch.empty((B, S, C, H), **f32)
+    db = torch.empty((B, S, C), **f32)
+    dgv = torch.empty((B, S, C), **f32)
+    lib = _build.load('linear_attention_bwd')
+    _build.check(lib, lib.gtt_la_bwd1(
+        x.data_ptr(), dy.data_ptr(), w_q.data_ptr(), a_full_t.data_ptr(),
+        a_pre.data_ptr(), b_out.data_ptr(), da.data_ptr(), dwq.data_ptr(),
+        db.data_ptr(), dgv.data_ptr(), B, N, C, chunk, S,
+        _build.DTYPE_CODES[x.dtype], _build.stream_of(x)), 'gtt_la_bwd1')
+    attention_bwd_sweep1.launches += 1
+    return (da.sum(dim=1), dwq.sum(dim=(0, 1)), db.sum(dim=(0, 1)),
+            dgv.sum(dim=(0, 1)))
+
+
+attention_bwd_sweep1.launches = 0
+
+
+def attention_bwd_sweep2(x, dy, w_q, w_k, w_v, m, a_full_t, dctx, dden,
+                         dim_head: int = DIM_HEAD):
+    """K5. Same contract as :func:`attention_bwd_sweep2_plain`; CPU tensors
+    take the plain version, CUDA tensors launch the kernel (built for
+    ``dim_head`` 32) or raise. The per-split partial sums are added up
+    here, in a fixed order."""
+    if x.device.type == 'cpu':
+        return attention_bwd_sweep2_plain(x, dy, w_q, w_k, w_v, m, a_full_t,
+                                          dctx, dden, dim_head)
+    if dim_head != DIM_HEAD:
+        raise ValueError(f'attention_bwd_sweep2: the kernel is built for '
+                         f'dim_head {DIM_HEAD}, got {dim_head}')
+    B, N, C = x.shape
+    H = HIDDEN
+    f32 = torch.float32
+    _check('attention_bwd_sweep2', x,
+           {'dy': dy, 'w_q': w_q, 'w_k': w_k, 'w_v': w_v, 'm': m,
+            'a_full_t': a_full_t, 'dctx': dctx, 'dden': dden},
+           [((B, N, C), x.dtype)] + [((C, H), x.dtype)] * 3
+           + [((B, H), f32), ((B, C, H), x.dtype), ((B, H, H), x.dtype),
+              ((B, H), f32)])
+    chunk = bwd_split_chunk(B, N, C, x.element_size(), bwd_roles('sweep2', C))
+    S = -(-N // chunk)
+    wqkv_t = torch.cat([w_q, w_k, w_v], dim=1).t().contiguous()  # [3H, C]
+    dctx_t = dctx.transpose(1, 2).contiguous()
+    dx = torch.empty_like(x)
+    dwkv = torch.empty((B, S, C, 2 * H), dtype=f32, device=x.device)
+    lib = _build.load('linear_attention_bwd')
+    _build.check(lib, lib.gtt_la_bwd2(
+        x.data_ptr(), dy.data_ptr(), w_k.data_ptr(), w_v.data_ptr(),
+        a_full_t.data_ptr(), wqkv_t.data_ptr(), m.data_ptr(),
+        dctx_t.data_ptr(), dctx.data_ptr(), dden.data_ptr(), dx.data_ptr(),
+        dwkv.data_ptr(), B, N, C, chunk, S, _build.DTYPE_CODES[x.dtype],
+        _build.stream_of(x)), 'gtt_la_bwd2')
+    attention_bwd_sweep2.launches += 1
+    dwkv = dwkv.sum(dim=(0, 1))
+    return dx, dwkv[:, :H], dwkv[:, H:]
+
+
+attention_bwd_sweep2.launches = 0
+
+
 # ---- merge, fold and the whole op ------------------------------------------
 
 
@@ -152,42 +298,107 @@ def merge_stats(m, ctx, den):
 def fold_context(ctx, den, w_out, b_out, g, dim_head: int):
     """(ctx [B, H, H], den [B, H]) -> (ctx2 [B, H, C], bias [C]) in f32:
     head block-diagonal mask, / den, @ Wout, * g (``_forward`` :195-200)."""
-    H = ctx.shape[-1]
-    head = torch.arange(H, device=ctx.device) // dim_head
-    bd = (head[:, None] == head[None, :]).float()
     g = g.float().reshape(())
-    ctx2 = (ctx * bd) / den[:, :, None]
+    ctx2 = (ctx * head_blockdiag(ctx.shape[-1], dim_head, ctx.device)) \
+        / den[:, :, None]
     ctx2 = (ctx2 @ w_out.float()) * g
     return ctx2, b_out.float() * g
 
 
-def _rezero(x, w_q, w_k, w_v, w_out, b_out, g, dim_head, chunk, stats,
-            apply):
+def _forward(x, w_q, w_k, w_v, w_out, b_out, g, dim_head, chunk, ops):
+    """K2 -> merge -> fold -> K3 (or their plain versions, ``ops``).
+    Returns (out [B, F, T, C], m, ctx, den), the last three merged."""
+    stats, apply = ops[:2]
     B, F, T, C = x.shape
     xr = x.reshape(B, F * T, C)
     dt = x.dtype
     if chunk is None:
         chunk = split_chunk(B, F * T)
-    m, ctx, den = merge_stats(*stats(xr, w_k.to(dt).contiguous(),
-                                     w_v.to(dt).contiguous(), chunk))
-    ctx2, bias = fold_context(ctx, den, w_out, b_out, g, dim_head)
+    m, cx, den = merge_stats(*stats(xr, w_k.to(dt).contiguous(),
+                                    w_v.to(dt).contiguous(), chunk))
+    ctx2, bias = fold_context(cx, den, w_out, b_out, g, dim_head)
     out = apply(xr, w_q.to(dt).contiguous(), ctx2.to(dt), bias)
-    return out.reshape(B, F, T, C)
+    return out.reshape(B, F, T, C), m, cx, den
+
+
+class LinearAttentionRezeroFn(torch.autograd.Function):
+    """(x [B, F, T, C]; w_q, w_k, w_v [C, H]; w_out [H, C]; b_out [C]; g [1])
+    -> (attention(x) @ w_out + b_out) * g + x in x's dtype. The weights may
+    be f32 under a bf16 x: they are cast to x's dtype at use, and their
+    grads come back in their own dtype. The running max m is
+    stop-gradient, as in ``models/diffusion.py:423`` of the JAX package.
+
+    ``ops`` = (stats, apply, sweep1, sweep2): the kernels' wrappers, or
+    their plain versions."""
+
+    @staticmethod
+    def forward(ctx, x, w_q, w_k, w_v, w_out, b_out, g, dim_head, chunk,
+                ops):
+        out, m, cx, den = _forward(x, w_q, w_k, w_v, w_out, b_out, g,
+                                   dim_head, chunk, ops)
+        ctx.save_for_backward(x, w_q, w_k, w_v, w_out, b_out, g, m, cx, den)
+        ctx.dim_head, ctx.sweeps = dim_head, ops[2:]
+        return out
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w_q, w_k, w_v, w_out, b_out, g, m, cx, den = ctx.saved_tensors
+        sweep1, sweep2 = ctx.sweeps
+        B, F, T, C = x.shape
+        dt = x.dtype
+        xr = x.reshape(B, F * T, C)
+        dyr = dy.to(dt).contiguous().reshape(B, F * T, C)
+        g32 = g.float().reshape(())
+        bd = head_blockdiag(w_q.shape[1], ctx.dim_head, x.device)
+        ctx2n = cx * bd / den[:, :, None]                    # [B, H, H]
+        w_out32 = w_out.float()
+        a_pre = ctx2n @ w_out32                              # [B, H, C]
+        a_full_t = (a_pre * g32).transpose(1, 2).to(dt).contiguous()
+        wq, wk, wv = (w.to(dt).contiguous() for w in (w_q, w_k, w_v))
+        da, dwq, db, dgv = sweep1(xr, dyr, wq, a_full_t,
+                                  a_pre.to(dt).contiguous(),
+                                  b_out.float().contiguous())
+        # host algebra of _backward_pallas :521-528 on the tiny matrices
+        dwout = torch.einsum('bde,bdc->ec', ctx2n, da) * g32
+        dctx2n = torch.einsum('bdc,ec->bde', da, w_out32) * g32
+        dctx = dctx2n * bd / den[:, :, None]
+        dden = -(dctx2n * cx * bd).sum(dim=2) / (den * den)
+        dxr, dwk, dwv = sweep2(xr, dyr, wq, wk, wv, m, a_full_t,
+                               dctx.to(dt).contiguous(), dden, ctx.dim_head)
+        return (dxr.reshape(B, F, T, C), dwq.to(w_q.dtype),
+                dwk.to(w_k.dtype), dwv.to(w_v.dtype),
+                dwout.to(w_out.dtype), (db * g32).to(b_out.dtype),
+                dgv.sum().reshape(g.shape).to(g.dtype), None, None, None)
+
+
+_KERNELS = (attention_stats, attention_apply, attention_bwd_sweep1,
+            attention_bwd_sweep2)
+_PLAIN = (attention_stats_plain, attention_apply_plain,
+          attention_bwd_sweep1_plain, attention_bwd_sweep2_plain)
+
+
+def _run(ops, args, dim_head, chunk):
+    """Through the autograd Function where a grad is needed, else the
+    forward alone (no autograd bookkeeping on the synthesis path)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return LinearAttentionRezeroFn.apply(*args, dim_head, chunk, ops)
+    return _forward(*args, dim_head, chunk, ops)[0]
 
 
 def linear_attention_rezero(x, w_q, w_k, w_v, w_out, b_out, g,
                             dim_head: int = 32, chunk=None):
-    """x [B, F, T, C]; w_q, w_k, w_v [C, H]; w_out [H, C]; b_out [C]; g the
-    ReZero gain ([1]). Returns (attention(x) @ w_out + b_out) * g + x in x's
-    dtype, through K2 and K3 (their plain versions for CPU tensors).
-    ``chunk`` is the rows per split of K2 (default: :func:`split_chunk`)."""
-    return _rezero(x, w_q, w_k, w_v, w_out, b_out, g, dim_head, chunk,
-                   attention_stats, attention_apply)
+    """x [B, F, T, C] contiguous; w_q, w_k, w_v [C, H]; w_out [H, C];
+    b_out [C]; g the ReZero gain ([1]). Returns (attention(x) @ w_out +
+    b_out) * g + x in x's dtype, through K2 and K3 and, under autograd, K4
+    and K5 (their plain versions for CPU tensors). ``chunk`` is the rows
+    per split of K2 (default: :func:`split_chunk`)."""
+    return _run(_KERNELS, (x, w_q, w_k, w_v, w_out, b_out, g), dim_head,
+                chunk)
 
 
 def linear_attention_rezero_plain(x, w_q, w_k, w_v, w_out, b_out, g,
                                   dim_head: int = 32, chunk=None):
     """Plain PyTorch version of :func:`linear_attention_rezero`, with the
-    same splits, merge and fold, on any device."""
-    return _rezero(x, w_q, w_k, w_v, w_out, b_out, g, dim_head, chunk,
-                   attention_stats_plain, attention_apply_plain)
+    same splits, merge, fold and backward algebra, on any device."""
+    return _run(_PLAIN, (x, w_q, w_k, w_v, w_out, b_out, g), dim_head,
+                chunk)

@@ -1,6 +1,6 @@
-"""Sequence utilities: masks and duration -> alignment paths.
+"""Sequence utilities: masks, duration -> alignment paths, duration loss.
 
-Counterpart of gradtts_tpu/ops/seq.py:16-41, on time-major [B, T] masks.
+Counterpart of gradtts_tpu/ops/seq.py:16-47, on time-major [B, T] masks.
 """
 
 import torch
@@ -21,3 +21,10 @@ def generate_path(duration: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     path = (pos[None, None, :] < cum[:, :, None]).to(mask.dtype)
     path = path - torch.nn.functional.pad(path, (0, 0, 1, 0))[:, :-1]
     return path * mask
+
+
+def duration_loss(logw: torch.Tensor, logw_hat: torch.Tensor,
+                  lengths: torch.Tensor) -> torch.Tensor:
+    """MSE between log-durations, normalized by the total token count
+    (``duration_loss`` :44)."""
+    return torch.sum((logw - logw_hat) ** 2) / torch.sum(lengths)

@@ -1,0 +1,53 @@
+"""Training checkpoints: ``ckpt/step_{:08d}.pt`` holding the step, the
+model's ``state_dict``, the optimizer's state and the generator's state,
+so a resumed run continues exactly.
+
+Counterpart of gradtts_tpu/train/checkpoint.py (Orbax directories there).
+Each file is written to a temporary name and renamed, so a crash while
+saving never leaves a partial latest checkpoint. The ``model`` entry is a
+reference-layout ``state_dict``: ``utils.convert.load_checkpoint`` and so
+``cli.inference`` read it.
+"""
+
+import os
+import re
+import tempfile
+from typing import Optional
+
+import torch
+
+_NAME = re.compile(r'^step_(\d{8})\.pt$')
+
+
+def save_checkpoint(ckpt_dir: str, model, optimizer, step: int,
+                    generator) -> str:
+    os.makedirs(ckpt_dir, exist_ok=True)
+    path = os.path.join(ckpt_dir, f'step_{step:08d}.pt')
+    payload = {'step': step, 'model': model.state_dict(),
+               'optimizer': optimizer.state_dict(),
+               'generator': generator.get_state()}
+    fd, tmp = tempfile.mkstemp(suffix='.tmp', dir=ckpt_dir)
+    os.close(fd)
+    try:
+        torch.save(payload, tmp)
+        os.replace(tmp, path)
+    except BaseException:
+        os.unlink(tmp)
+        raise
+    return path
+
+
+def latest_checkpoint(ckpt_dir: str) -> Optional[str]:
+    if not os.path.isdir(ckpt_dir):
+        return None
+    names = sorted(n for n in os.listdir(ckpt_dir) if _NAME.match(n))
+    return os.path.join(ckpt_dir, names[-1]) if names else None
+
+
+def restore_checkpoint(ckpt_dir: str, path: Optional[str] = None):
+    """The payload dict of the latest (or the given) checkpoint, tensors on
+    the CPU, or None when there is none."""
+    path = path or latest_checkpoint(ckpt_dir)
+    if path is None:
+        return None
+    return torch.load(path, map_location='cpu', weights_only=True)

@@ -1,0 +1,162 @@
+"""The training loop: epochs over the data loader, the train step on the
+device, metrics fetched in batches, per-epoch log line, checkpoints and
+resume.
+
+Counterpart of gradtts_tpu/train/loop.py:93-368 for one device. The
+parameters and the Adam state are f32 on the device; the forward runs in
+bf16 where the JAX package does when ``train.use_bf16_compute`` is set.
+The metrics stay on the device and are fetched every ``FLUSH_EVERY`` steps
+in one copy, never per step. TensorBoard scalars (the reference's names)
+are written when ``torch.utils.tensorboard`` imports. Not ported: the
+epoch-end synthesis previews and plots, and multi-device training.
+"""
+
+import logging
+import os
+import time
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from gradtts_tpu_torch.config import GradTTSConfig
+from gradtts_tpu_torch.data.dataset import (BatchCollate, DataLoader,
+                                            TextMelDataset)
+from gradtts_tpu_torch.models.tts import GradTTS, set_compute_dtype
+from gradtts_tpu_torch.train.checkpoint import (restore_checkpoint,
+                                                save_checkpoint)
+from gradtts_tpu_torch.train.state import METRICS, make_optimizer, train_step
+
+log = logging.getLogger('gradtts_tpu_torch.train')
+FLUSH_EVERY = 50       # steps between fetches of the metrics to the host
+
+
+class MetricsLogger:
+    """TensorBoard scalars (when available) and the ``train.log`` text
+    file in ``log_dir``."""
+
+    def __init__(self, log_dir):
+        os.makedirs(log_dir, exist_ok=True)
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+            self._tb = SummaryWriter(log_dir=log_dir)
+        except ImportError:          # tensorboard is not installed
+            self._tb = None
+        self._txt = open(os.path.join(log_dir, 'train.log'), 'a')
+
+    def scalars(self, metrics: dict, step: int):
+        if self._tb is not None:
+            for k, v in metrics.items():
+                self._tb.add_scalar(k, v, global_step=step)
+
+    def text(self, msg: str):
+        self._txt.write(msg + '\n')
+        self._txt.flush()
+
+    def close(self):
+        if self._tb is not None:
+            self._tb.close()
+        self._txt.close()
+
+
+class TrainResult(NamedTuple):
+    step: int
+    model: GradTTS
+    optimizer: torch.optim.Optimizer
+    generator: torch.Generator
+
+
+def batch_to(batch: dict, device) -> dict:
+    """A collated numpy batch as tensors on ``device``: ids and lengths
+    int64, mels f32."""
+    out = {}
+    for k, v in batch.items():
+        t = torch.from_numpy(np.asarray(v))
+        out[k] = (t.long() if k != 'y' else t).to(device, non_blocking=True)
+    return out
+
+
+def train(cfg: GradTTSConfig, n_epochs: Optional[int] = None,
+          max_steps: Optional[int] = None, log_dir: Optional[str] = None,
+          resume: bool = True, loader=None, device=None) -> TrainResult:
+    """Trains per ``cfg`` on ``device`` (default ``cuda``) and returns the
+    final step, model, optimizer and generator. ``loader`` (an iterable of
+    collated batches) replaces the dataset of ``cfg``; ``max_steps`` bounds
+    the steps of this call."""
+    log_dir = log_dir or cfg.train.log_dir
+    n_epochs = n_epochs if n_epochs is not None else cfg.train.n_epochs
+    device = torch.device(device or 'cuda')
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(cfg.train.seed)      # the initial weights
+        model = GradTTS.from_config(cfg)
+    model = model.to(device).train()
+    set_compute_dtype(model, torch.bfloat16 if cfg.train.use_bf16_compute
+                      else torch.float32)
+    optimizer = make_optimizer(model.parameters(), cfg.train.learning_rate)
+    generator = torch.Generator(device=device).manual_seed(cfg.train.seed)
+
+    start_step = 0
+    ckpt_dir = os.path.join(log_dir, 'ckpt')
+    payload = restore_checkpoint(ckpt_dir) if resume else None
+    if payload is not None:
+        model.load_state_dict(payload['model'])
+        optimizer.load_state_dict(payload['optimizer'])
+        generator.set_state(payload['generator'])
+        start_step = int(payload['step'])
+        log.info('resumed from step %d', start_step)
+
+    if loader is None:
+        loader = DataLoader(TextMelDataset.from_config(cfg),
+                            cfg.train.batch_size,
+                            BatchCollate(cfg.data.x_buckets,
+                                         cfg.data.y_buckets),
+                            shuffle=True, seed=cfg.train.seed)
+    metrics_log = MetricsLogger(log_dir)
+    step = start_step
+    try:
+        for epoch in range(n_epochs):
+            epoch_metrics, pending = [], []
+
+            def flush():
+                if not pending:
+                    return
+                values = torch.stack([torch.stack([m[k] for k in METRICS])
+                                      for _, m in pending]).cpu().numpy()
+                for (at_step, _), row in zip(pending, values):
+                    host = dict(zip(METRICS, row.tolist()))
+                    epoch_metrics.append(host)
+                    metrics_log.scalars(host, at_step)
+                pending.clear()
+
+            t0 = time.time()
+            for batch in loader:
+                metrics = train_step(model, optimizer, batch_to(batch, device),
+                                     cfg.out_size, cfg.train.grad_clip_norm,
+                                     generator)
+                step += 1
+                pending.append((step, metrics))
+                if len(pending) >= FLUSH_EVERY:
+                    flush()
+                if max_steps is not None and step - start_step >= max_steps:
+                    break
+            flush()
+            if not epoch_metrics:
+                raise ValueError(
+                    'the training data gave no batch: check '
+                    f'data.train_filelist_path '
+                    f'({cfg.data.train_filelist_path!r}) and batch_size '
+                    f'({cfg.train.batch_size}) against the dataset size')
+            means = {k: float(np.mean([m[k] for m in epoch_metrics]))
+                     for k in METRICS}
+            msg = (f'epoch {epoch}: ' + ', '.join(
+                f'{k}={v:.4f}' for k, v in means.items())
+                + f' ({time.time() - t0:.1f}s)')
+            log.info(msg)
+            metrics_log.text(msg)
+            if (epoch + 1) % cfg.train.save_every == 0:
+                save_checkpoint(ckpt_dir, model, optimizer, step, generator)
+            if max_steps is not None and step - start_step >= max_steps:
+                break
+    finally:
+        metrics_log.close()
+    return TrainResult(step, model, optimizer, generator)

@@ -1,0 +1,54 @@
+"""Optimizer, gradient clipping and one training step.
+
+Counterpart of gradtts_tpu/train/state.py: Adam at 1e-4 (``torch.optim.Adam``
+defaults equal ``optax.adam``'s: betas 0.9 and 0.999, eps 1e-8) and the
+per-submodule clip of ``_subtree_clip`` (:25): the encoder's grads and the
+U-Net's (``decoder.estimator``) are each clipped to a global norm of
+``grad_clip_norm``. Every parameter and the Adam state stay f32 whatever
+the compute dtype, as the JAX package keeps them.
+"""
+
+import torch
+
+from gradtts_tpu_torch.models.tts import GradTTS, compute_loss
+
+METRICS = ('loss/total', 'loss/duration', 'loss/prior', 'loss/diffusion',
+           'grad_norm/encoder', 'grad_norm/decoder')
+
+
+def make_optimizer(params, learning_rate: float = 1e-4) -> torch.optim.Adam:
+    return torch.optim.Adam(params, lr=learning_rate)
+
+
+def subtree_clip(model: GradTTS, max_norm: float):
+    """Scales the grads of ``encoder`` and of ``decoder.estimator`` in place
+    by min(1, max_norm / (norm + 1e-6)), each by its own global norm.
+    Returns the two norms before clipping (0-d tensors)."""
+    norms = []
+    for module in (model.encoder, model.decoder.estimator):
+        params = [p for p in module.parameters() if p.grad is not None]
+        norm = torch.nn.utils.get_total_norm([p.grad for p in params])
+        # scales by min(1, max_norm / (norm + 1e-6)), as _subtree_clip
+        torch.nn.utils.clip_grads_with_norm_(params, max_norm, norm)
+        norms.append(norm)
+    return tuple(norms)
+
+
+def train_step(model: GradTTS, optimizer, batch: dict, out_size,
+               grad_clip_norm: float = 1.0, generator=None) -> dict:
+    """One step on ``batch`` ({'x', 'x_lengths', 'y', 'y_lengths'} on the
+    model's device): losses, backward, clip, Adam. The crop, the diffusion
+    draws and (under ``train()``) the dropout masks come from
+    ``generator``. Returns the six metrics of the JAX step (:110-117) as
+    0-d tensors on the device, not fetched."""
+    optimizer.zero_grad(set_to_none=True)
+    res = compute_loss(model, batch['x'], batch['x_lengths'], batch['y'],
+                       batch['y_lengths'], out_size=out_size,
+                       generator=generator)
+    total = res.dur_loss + res.prior_loss + res.diff_loss
+    total.backward()
+    enc_norm, dec_norm = subtree_clip(model, grad_clip_norm)
+    optimizer.step()
+    values = (total, res.dur_loss, res.prior_loss, res.diff_loss, enc_norm,
+              dec_norm)
+    return {k: v.detach() for k, v in zip(METRICS, values)}

@@ -146,7 +146,7 @@ def flax_params_to_state_dict(params) -> dict:
         else:
             raise KeyError(f'unhandled top-level module {path[0]}')
         w = _TO_TORCH[kind](np.asarray(leaf, dtype=np.float32))
-        sd[key] = torch.from_numpy(np.ascontiguousarray(w))
+        sd[key] = torch.from_numpy(np.array(w, order='C'))
     return sd
 
 

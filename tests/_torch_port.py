@@ -2,6 +2,8 @@
 tiny GradTTS whose every parameter is drawn from a numpy seed, in both
 packages."""
 
+import os
+
 import numpy as np
 import torch
 
@@ -88,3 +90,25 @@ def text_batch(seed: int, lengths=(16, 11), t_x: int = 16):
     for b, n in enumerate(lengths):
         x[b, n:] = 0
     return x, np.asarray(lengths, np.int32)
+
+
+CMUDICT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), 'resources', 'cmu_dictionary')
+
+
+def write_corpus(directory, n_items: int = 5, sr: int = 22050):
+    """Synthetic wavs (a sine plus noise, 0.3-0.7 s, PCM16) and their
+    ``path|text`` filelist in ``directory``; returns the filelist's path."""
+    from scipy.io import wavfile
+    lines = []
+    for i in range(n_items):
+        rng = np.random.default_rng(i)
+        t = np.arange(int(sr * (0.3 + 0.1 * (i % 5)))) / sr
+        wav = (0.3 * np.sin(2 * np.pi * (180 + 20 * i) * t)
+               + 0.05 * rng.standard_normal(t.shape))
+        path = str(directory / f'{i}.wav')
+        wavfile.write(path, sr, (wav * 32767).astype(np.int16))
+        lines.append(f'{path}|hello world, number {i}.')
+    filelist = directory / 'list.txt'
+    filelist.write_text('\n'.join(lines) + '\n')
+    return str(filelist)

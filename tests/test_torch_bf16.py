@@ -23,22 +23,42 @@ def models():
 
 
 def test_cast_keeps_norms_heads_and_gains_f32(models):
+    # every parameter stays f32 (flax param_dtype); the convolutions of the
+    # trunk and the U-Net and the U-Net's attention compute in bf16, the
+    # embedding, the encoder heads and the time MLP in f32
     model = models[2]
-    sd = model.state_dict()
-    for key in ('encoder.emb.weight', 'encoder.proj_m.weight',
-                'encoder.proj_w.conv_1.weight',
-                'encoder.encoder.norm_layers_1.0.gamma',
-                'decoder.estimator.mlp.0.weight',
-                'decoder.estimator.downs.0.0.block1.block.1.weight',
-                'decoder.estimator.downs.0.2.fn.g'):
-        assert sd[key].dtype == torch.float32, key
-    for key in ('encoder.prenet.conv_layers.0.weight',
-                'encoder.encoder.attn_layers.0.conv_q.weight',
-                'decoder.estimator.downs.0.0.block1.block.0.weight',
-                'decoder.estimator.downs.0.2.fn.fn.to_qkv.weight',
-                'decoder.estimator.ups.0.3.conv.weight',
-                'decoder.estimator.final_conv.weight'):
-        assert sd[key].dtype == torch.bfloat16, key
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    f32_sites = ('encoder.emb', 'encoder.proj_m', 'encoder.proj_w.conv_1',
+                 'decoder.estimator.mlp.0')
+    bf16_sites = ('encoder.prenet.conv_layers.0',
+                  'encoder.encoder.attn_layers.0.conv_q',
+                  'decoder.estimator.downs.0.0.block1.block.0',
+                  'decoder.estimator.downs.0.2',
+                  'decoder.estimator.ups.0.3.conv',
+                  'decoder.estimator.final_conv')
+    out_dtypes = {}
+
+    def record(name):
+        def hook(module, inputs, out):
+            out_dtypes.setdefault(name, out.dtype)
+        return hook
+
+    modules = dict(model.named_modules())
+    hooks = [modules[name].register_forward_hook(record(name))
+             for name in f32_sites + bf16_sites]
+    x, xl = text_batch(12, (16, 12))
+    y = torch.zeros(2, 16, 80)
+    try:
+        with torch.no_grad():
+            model.encode(torch.from_numpy(x).long(), torch.from_numpy(xl))
+            model.estimate(y, torch.ones(2, 16), y, torch.tensor([0.3, 0.7]))
+    finally:
+        for h in hooks:
+            h.remove()
+    for name in f32_sites:
+        assert out_dtypes[name] == torch.float32, name
+    for name in bf16_sites:
+        assert out_dtypes[name] == torch.bfloat16, name
 
 
 def test_encoder_bf16_tracks_jax_f32(models):
@@ -69,3 +89,22 @@ def test_estimator_bf16_tracks_jax_f32(models):
     assert got.dtype == torch.float32          # score returned in f32
     rel = np.abs(got.numpy() - want).max() / (want.std() + 1e-6)
     assert rel < 0.12, f'bf16 deviates {rel:.3f} of output std'
+
+
+def test_kept_cast_follows_the_parameter():
+    # without autograd a conv keeps its bf16 weight across calls, and
+    # casts again once the f32 parameter changes (an optimizer step, a
+    # load); with autograd the cast is differentiable and not kept
+    from gradtts_tpu_torch.models.layers import Conv2d
+    conv = Conv2d(4, 8, 3)
+    with torch.no_grad():
+        first = conv.cast('weight', torch.bfloat16)
+        assert conv.cast('weight', torch.bfloat16) is first
+        conv.weight.add_(1.0)
+        second = conv.cast('weight', torch.bfloat16)
+    assert second is not first
+    torch.testing.assert_close(second, conv.weight.detach().bfloat16(),
+                               rtol=0, atol=0)
+    live = conv.cast('weight', torch.bfloat16)
+    assert live.grad_fn is not None and live is not second
+    assert conv.cast('weight', torch.float32) is conv.weight

@@ -12,9 +12,10 @@ import torch
 from _torch_port import TINY, N_VOCAB
 from gradtts_tpu_torch.cli.inference import main as inference_main
 from gradtts_tpu_torch.config import get_config
-from gradtts_tpu_torch.models.tts import GradTTS, synthesize
+from gradtts_tpu_torch.models.tts import GradTTS, compute_loss, synthesize
 from gradtts_tpu_torch.ops import groupnorm_mish as tgn
 from gradtts_tpu_torch.ops import linear_attention as tla
+from gradtts_tpu_torch.ops import mas as tmas
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -62,9 +63,16 @@ def test_cpu_path_launches_no_kernel():
     for m in model.modules():                # non-zero gains: attention runs
         if hasattr(m, 'g'):
             m.g.data.fill_(0.5)
-    counters = (tgn.groupnorm_mish, tla.attention_stats, tla.attention_apply)
+    counters = (tgn.groupnorm_mish, tla.attention_stats, tla.attention_apply,
+                tla.attention_bwd_sweep1, tla.attention_bwd_sweep2,
+                tmas.maximum_path)
     before = [c.launches for c in counters]
     res = synthesize(model, torch.randint(1, N_VOCAB, (1, 8)),
                      torch.tensor([8]), n_timesteps=2, y_max_length=32)
     assert torch.isfinite(res.decoder_outputs).all()
+    # and a training loss with its backward (MAS, K4, K5 on the CPU)
+    loss = compute_loss(model, torch.randint(1, N_VOCAB, (2, 8)),
+                        torch.tensor([8, 5]), torch.randn(2, 32, 80),
+                        torch.tensor([32, 20]))
+    (loss.dur_loss + loss.prior_loss + loss.diff_loss).backward()
     assert [c.launches for c in counters] == before
