@@ -11,8 +11,10 @@ Phases, each printing one JSON line:
               shape its path gives it, in f32 and bf16, and time kernel and
               plain version in bf16: K1-K3 at the synthesis shapes (B 8,
               768 frames) and the training shapes (B 16, 172-frame crops,
-              ragged row tiles), K4 and K5 at the training shapes, MAS at
-              [16, 384, 1024];
+              ragged row tiles) and the likelihood shapes (B 8, 512
+              frames), K4 and K5 at the training shapes, K6 (with and
+              without weight tangents) and K7 at the likelihood shapes, MAS
+              at [16, 384, 1024] and [8, 128, 512];
   3. slice    a full-width ljspeech GradTTS with every weight drawn from a
               seed: 10-step synthesis (B 2, Tx 64, Ty 256, f32) on the GPU
               against the same on the CPU (plain versions);
@@ -26,7 +28,16 @@ Phases, each printing one JSON line:
               synthetic 64-utterance corpus (B 16, bf16 compute, f32
               parameters), a resumed step, cli.inference on its checkpoint;
               then the train step timed in-process: launches per step,
-              steps/s, audio-s trained per second and the device share.
+              steps/s, audio-s trained per second and the device share;
+  8. likelihood_slice  the phase-3 model: score_batch (likelihood of real
+              mels under text hypotheses, 4-step Euler, Hutchinson jvp;
+              B 2, Tx 64, Ty 256, f32) on the GPU against the CPU, with the
+              same probe;
+  9. nbest_cli  python -m gradtts_tpu_torch.cli.nbest score on a synthetic
+              n-best list over synthetic wavs, then compile and rescore;
+ 10. likelihood  score_batch at B 8, Tx 128, Ty 512, 10-step Euler, bf16
+              compute: hypotheses/s, launches per call, the device share;
+ 11. adaptive  one adaptive Dormand-Prince score_batch (B 2, Ty 256).
 Then the card's name and power limit (nvidia-smi), the {"kernels": [...]}
 line, and last {"ok": true, "device": {...}}. Any failure exits non-zero
 before the last line; so does a machine without a GPU or a directory
@@ -63,6 +74,14 @@ TRAIN_LEVELS = [((80, 172, 64), 5, 1), ((40, 86, 128), 4, 1),
                 ((20, 43, 256), 8, 2), ((20, 43, 128), 4, 1),
                 ((40, 86, 64), 4, 1)]
 MAS_SHAPE = (16, 384, 1024)      # [B, Tx, Ty]: the 384-token, 1024-frame buckets
+# the likelihood shapes: score_batch at B 8, Tx 128, Ty 512, 10 Euler steps
+# (bench_suite.py:187-208); every drift evaluation runs the U-Net forward
+# and its jvp: K1-K3 for the primal, K6 + K7 for the attention's tangent
+LIK_B, LIK_TX, LIK_TY, LIK_STEPS = 8, 128, 512, 10
+LIK_LEVELS = [((80, 512, 64), 5, 1), ((40, 256, 128), 4, 1),
+              ((20, 128, 256), 8, 2), ((20, 128, 128), 4, 1),
+              ((40, 256, 64), 4, 1)]
+LIK_MAS_SHAPE = (LIK_B, LIK_TX, LIK_TY)
 # Tolerances of |kernel - plain|, per dtype. Per-row outputs, elementwise
 # |d| <= tol + tol * |plain|: f32 sums in other orders over up to 491520
 # values, ~1e-6 relative, 1e-4 leaves margin; bf16 outputs round the same
@@ -77,6 +96,10 @@ TOL = {
     'attention_apply': {'float32': 1e-4, 'bfloat16': 2 ** -6},
     'attention_bwd_sweep1': {'float32': 1e-4, 'bfloat16': 2 ** -7},
     'attention_bwd_sweep2': {'float32': 1e-4, 'bfloat16': 2 ** -6},
+    # K6: the f32 statistics as K2's (primal elementwise, the tangents'
+    # batch-wide sums of max); K7: y and dy as K3's output
+    'attention_jvp_stats': {'float32': 1e-4, 'bfloat16': 1e-4},
+    'attention_jvp_apply': {'float32': 1e-4, 'bfloat16': 2 ** -6},
     'maximum_path': {'float32': 0.0},
 }
 KERNELS = list(TOL)
@@ -136,10 +159,12 @@ def phase_build():
         for ln in r['log'].splitlines():
             if 'Compiling entry function' in ln:
                 # _ZN..gn_stats_kernelI13__nv_bfloat16Li64E.. -> gn_stats<bf16,64>
-                m = re.search(r'((?:gn|la)_[a-z0-9]+)_kernelI'
-                              r'(f|13__nv_bfloat16)Li(\d+)E', ln)
+                # and ..la_jvp_stats_kernelIfLi64ELb1E.. -> la_jvp_stats<f32,64,dW>
+                m = re.search(r'((?:gn|la)_[a-z0-9_]+?)_kernelI'
+                              r'(f|13__nv_bfloat16)Li(\d+)E(?:Lb([01])E)?', ln)
                 plain = re.search(r'(mas)_kernel', ln)
-                fn = f"{m[1]}<{'f32' if m[2] == 'f' else 'bf16'},{m[3]}>" \
+                fn = (f"{m[1]}<{'f32' if m[2] == 'f' else 'bf16'},{m[3]}"
+                      f"{',dW' if m[4] == '1' else ''}>") \
                     if m else plain[1] if plain else ln.split("'")[1]
             elif fn and 'spill stores' in ln:
                 spill = ln.split(',')[1].strip()
@@ -182,12 +207,30 @@ def _timed(st, mult, fn, plain, nbytes, flops, peak, line):
                 per_call=mult)
 
 
+def _jvp_stats_pairs(got, want):
+    """K6's outputs, merged: m per split and ctx / den elementwise (as K2's);
+    the tangents dctx / den and dden / den against their largest value."""
+    import gradtts_tpu_torch.ops.linear_attention as la
+
+    def normed(out):
+        ctx, den, dctx, dden = la.merge_jvp_stats(*out)
+        den_rows = den.reshape(ctx.shape[:-1])[..., None]
+        return ctx / den_rows, dctx / den_rows, dden / den
+
+    (c_k, dc_k, dd_k), (c_p, dc_p, dd_p) = normed(got), normed(want)
+    return [(got[0], want[0], False), (c_k, c_p, False), (dc_k, dc_p, True),
+            (dd_k, dd_p, True)]
+
+
 def phase_kernels(device):
     """Every kernel against its plain version at the shapes its path gives
     it, f32 and bf16; times in bf16. K1-K3 at the synthesis shapes (B 8,
-    Ty 768) and the training shapes (B 16, 172-frame crops, whose F*T leave
-    ragged row tiles); K4, K5 at the training shapes; MAS at [16, 384,
-    1024]. Returns {kernel: {'max_abs_err', path: per-call sums}}."""
+    Ty 768), the training shapes (B 16, 172-frame crops, whose F*T leave
+    ragged row tiles) and the likelihood shapes (B 8, Ty 512); K4, K5 at
+    the training shapes; K6 and K7 at the likelihood shapes, timed in the
+    variant without weight tangents that the Hutchinson jvp runs and
+    checked in both; MAS at [16, 384, 1024] and [8, 128, 512]. Returns
+    {kernel: {'max_abs_err', path: per-call sums}}."""
     import numpy as np
     import torch
     from gradtts_tpu_torch.ops import groupnorm_mish as gn
@@ -202,7 +245,8 @@ def phase_kernels(device):
                             dtype=torch.float32, device=device).to(dtype)
 
     for path, bsz, levels in (('synth', B, LEVELS),
-                              ('train', TRAIN_B, TRAIN_LEVELS)):
+                              ('train', TRAIN_B, TRAIN_LEVELS),
+                              ('likelihood', LIK_B, LIK_LEVELS)):
         for (F, T, C), n_blocks, n_attn in levels:
             N = F * T
             lengths = torch.tensor([T] * (bsz - 2) + [T * 3 // 4, T // 3],
@@ -300,6 +344,51 @@ def phase_kernels(device):
                         + bsz * (C * H + H * H) * size + 2 * bsz * H * 4
                         + 2 * C * H * 4,
                         bsz * N * (16 * C * H + 4 * H * 32), dn)
+                variants = {}
+                if path == 'likelihood':
+                    dx = rand((bsz, N, C), 1.0, dtype)
+                    dwq, dwk, dwv = (rand((C, H), 0.05, dtype)
+                                     for _ in range(3))
+                    a, da, abias, adbias = la.fold_context_jvp(
+                        *la.merge_jvp_stats(*la.attention_jvp_stats_plain(
+                            xr, dx, wk, wv, None, None, chunk)),
+                        w_out, b_out, g, None, None, None)
+                    a, da = a.to(dtype), da.to(dtype)
+                    fns['attention_jvp_stats'] = (
+                        lambda: la.attention_jvp_stats(xr, dx, wk, wv, None,
+                                                       None, chunk),
+                        lambda: la.attention_jvp_stats_plain(
+                            xr, dx, wk, wv, None, None, chunk))
+                    fns['attention_jvp_apply'] = (
+                        lambda: la.attention_jvp_apply(xr, dx, wq, None, a,
+                                                       da, abias, adbias),
+                        lambda: la.attention_jvp_apply_plain(
+                            xr, dx, wq, None, a, da, abias, adbias))
+                    # the variants with weight tangents: checked, not on
+                    # the path
+                    variants = {
+                        'attention_jvp_stats': (
+                            lambda: la.attention_jvp_stats(
+                                xr, dx, wk, wv, dwk, dwv, chunk),
+                            lambda: la.attention_jvp_stats_plain(
+                                xr, dx, wk, wv, dwk, dwv, chunk)),
+                        'attention_jvp_apply': (
+                            lambda: la.attention_jvp_apply(
+                                xr, dx, wq, dwq, a, da, abias, adbias),
+                            lambda: la.attention_jvp_apply_plain(
+                                xr, dx, wq, dwq, a, da, abias, adbias))}
+                    pairs['attention_jvp_stats'] = _jvp_stats_pairs
+                    pairs['attention_jvp_apply'] = lambda got, want: [
+                        (a_, b_, False) for a_, b_ in zip(got, want)]
+                    # per split: m, den, dden and the blocks of ctx, dctx
+                    outs = bsz * -(-N // chunk) * (3 * H + 2 * H * 32) * 4
+                    work['attention_jvp_stats'] = (
+                        n_attn, 2 * elems * size + 2 * C * H * size + outs,
+                        bsz * N * (8 * C * H + 6 * H * 32 + 2 * H), dn)
+                    work['attention_jvp_apply'] = (
+                        n_attn, 4 * elems * size + C * H * size
+                        + 2 * bsz * H * C * size + 2 * C * 4,
+                        bsz * N * (10 * C * H + 4 * C), dn)
                 line = {'phase': 'kernels', 'path': path,
                         'shape': [bsz, F, T, C], 'dtype': dn}
                 for name, (fn, plain) in fns.items():
@@ -319,17 +408,46 @@ def phase_kernels(device):
                         mult, nbytes, flops, peak = work[name]
                         _timed(st.setdefault(path, _stat()), mult, fn, plain,
                                nbytes, flops, peak, line[name])
+                    if name in variants:
+                        vfn, vplain = variants[name]
+                        got = vfn()
+                        torch.cuda.synchronize()
+                        errs = [_err(a_, b_, tol, r) for a_, b_, r
+                                in pairs[name](got, vplain())]
+                        verr = max(e for e, _ in errs)
+                        line[name]['weight_tangents'] = {
+                            'max_abs_err': verr,
+                            'ok': all(o for _, o in errs)}
+                        st['max_abs_err'] = max(st['max_abs_err'], verr)
+                        require(line[name]['weight_tangents']['ok'],
+                                f'{name} with weight tangents {dn} '
+                                f'{(bsz, F, T, C)}: max abs err {verr} over '
+                                f'tolerance {tol}')
+                if path == 'likelihood':
+                    # K7's y is K3's output for the same A: a free check
+                    y_k7 = la.attention_jvp_apply(xr, dx, wq, None, a, da,
+                                                  abias, adbias)[0]
+                    y_k3 = la.attention_apply(xr, wq, a, abias)
+                    torch.cuda.synchronize()
+                    diff = float((y_k7.float() - y_k3.float()).abs().max())
+                    line['attention_jvp_apply']['y_vs_k3_max_abs'] = diff
+                    require(_err(y_k7, y_k3, TOL['attention_apply'][dn],
+                                 False)[1],
+                            f'K7 y and K3 output differ by {diff} {dn} '
+                            f'{(bsz, F, T, C)}')
                 emit(line)
-    _kernel_mas(device, rng, stats['maximum_path'])
+    _kernel_mas(device, rng, stats['maximum_path'], 'train', MAS_SHAPE)
+    _kernel_mas(device, rng, stats['maximum_path'], 'likelihood',
+                LIK_MAS_SHAPE)
     return stats
 
 
-def _kernel_mas(device, rng, st):
-    """MAS at [16, 384, 1024]: bit-exact against its plain version."""
+def _kernel_mas(device, rng, st, path, shape):
+    """MAS at ``shape`` [B, Tx, Ty]: bit-exact against its plain version."""
     import numpy as np
     import torch
     from gradtts_tpu_torch.ops import mas
-    bsz, tx, ty = MAS_SHAPE
+    bsz, tx, ty = shape
     t_x = rng.integers(tx // 2, tx + 1, bsz)
     t_y = np.minimum(t_x * rng.uniform(2.0, 4.0, bsz), ty).astype(int)
     t_x[0], t_y[0] = tx, ty
@@ -342,16 +460,16 @@ def _kernel_mas(device, rng, st):
     torch.cuda.synchronize()
     want = mas.maximum_path_plain(value, mask)
     err = float((got - want).abs().max())
-    line = {'phase': 'kernels', 'path': 'train', 'shape': list(MAS_SHAPE),
+    line = {'phase': 'kernels', 'path': path, 'shape': list(shape),
             'dtype': 'float32',
             'maximum_path': {'max_abs_err': err, 'tol': 0.0,
                              'exact': bool(torch.equal(got, want)),
                              'path_cells': int(want.sum())}}
     require(torch.equal(got, want), f'maximum_path: kernel and plain paths '
                                     f'differ (max abs err {err})')
-    st['max_abs_err'] = err
+    st['max_abs_err'] = max(st['max_abs_err'], err)
     cells = bsz * tx * ty
-    _timed(st.setdefault('train', _stat()), 1,
+    _timed(st.setdefault(path, _stat()), 1,
            lambda: mas.maximum_path(value, mask),
            lambda: mas.maximum_path_plain(value, mask), 3 * cells * 4,
            4 * int((mask != 0).sum()), 'float32', line['maximum_path'])
@@ -392,6 +510,8 @@ def _counted():
             'attention_apply': la.attention_apply,
             'attention_bwd_sweep1': la.attention_bwd_sweep1,
             'attention_bwd_sweep2': la.attention_bwd_sweep2,
+            'attention_jvp_stats': la.attention_jvp_stats,
+            'attention_jvp_apply': la.attention_jvp_apply,
             'maximum_path': mas.maximum_path}
 
 
@@ -404,14 +524,26 @@ def read_counts():
     return {name: fn.launches for name, fn in _counted().items()}
 
 
-# launches per synthesis (10 U-Net calls of 25 Blocks and 6 attentions) and
-# per training step (one U-Net forward and backward, one MAS)
+# launches per synthesis (10 U-Net calls of 25 Blocks and 6 attentions),
+# per training step (one U-Net forward and backward, one MAS) and per
+# likelihood score of ``steps`` Euler steps (one MAS; every step one U-Net
+# forward, whose jvp adds K6 and K7 to each attention and recomputes K1's
+# plain version for its tangent)
 EXPECTED_COUNTS = {'groupnorm_mish': 25 * STEPS, 'attention_stats': 6 * STEPS,
                    'attention_apply': 6 * STEPS, 'attention_bwd_sweep1': 0,
-                   'attention_bwd_sweep2': 0, 'maximum_path': 0}
+                   'attention_bwd_sweep2': 0, 'attention_jvp_stats': 0,
+                   'attention_jvp_apply': 0, 'maximum_path': 0}
 TRAIN_COUNTS = {'groupnorm_mish': 25, 'attention_stats': 6,
                 'attention_apply': 6, 'attention_bwd_sweep1': 6,
-                'attention_bwd_sweep2': 6, 'maximum_path': 1}
+                'attention_bwd_sweep2': 6, 'attention_jvp_stats': 0,
+                'attention_jvp_apply': 0, 'maximum_path': 1}
+
+
+def likelihood_counts(steps):
+    return {'groupnorm_mish': 25 * steps, 'attention_stats': 6 * steps,
+            'attention_apply': 6 * steps, 'attention_bwd_sweep1': 0,
+            'attention_bwd_sweep2': 0, 'attention_jvp_stats': 6 * steps,
+            'attention_jvp_apply': 6 * steps, 'maximum_path': 1}
 
 
 def phase_slice(device):
@@ -786,9 +918,250 @@ def phase_train(device, card):
     return counts
 
 
+# ---- phase 8 ---------------------------------------------------------------
+
+# GPU vs CPU, f32 with TF32 off, the same probe: each drift evaluation
+# differs by ~1e-5 relative (phase 3), and the random model's flow grows
+# that over the 4 steps; scores are sums of ~41k terms that partly cancel:
+# 1e-3 relative on score, prior_logp and delta_logp, and 1e-3 of max |z|
+LIK_SLICE_RTOL = 1e-3
+LIK_SLICE_STEPS = 4
+
+
+def _likelihood_batch(cfg, rng, bsz, t_x, t_y, y_lengths):
+    """Token ids, lengths and log-mel-like frames (N(-5, 2), zero past each
+    length) for score_batch."""
+    import numpy as np
+    import torch
+    x = torch.from_numpy(rng.integers(1, cfg.n_vocab, (bsz, t_x)))
+    x_lengths = torch.full((bsz,), t_x)
+    y = rng.standard_normal((bsz, t_y, cfg.data.n_feats)) * 2.0 - 5.0
+    for i, n in enumerate(y_lengths):
+        y[i, n:] = 0.0
+    return (x, x_lengths, torch.from_numpy(y.astype(np.float32)),
+            torch.tensor(y_lengths))
+
+
+def _seeded_model(cfg, ckpt, device):
+    import torch
+    from gradtts_tpu_torch.models.tts import GradTTS
+    model = GradTTS.from_config(cfg)
+    model.load_state_dict(torch.load(ckpt, weights_only=True), strict=True)
+    return model.to(device).eval()
+
+
+def phase_likelihood_slice(device, ckpt):
+    import numpy as np
+    import torch
+    from gradtts_tpu_torch.config import get_config
+    from gradtts_tpu_torch.nbest.scoring import score_batch
+
+    cfg = get_config('ljspeech')
+    rng = np.random.default_rng(5)
+    bsz, t_x, t_y = 2, 64, 256
+    x, x_lengths, y, y_lengths = _likelihood_batch(cfg, rng, bsz, t_x, t_y,
+                                                   [t_y, 200])
+    x_lengths[1] = 40
+    x[1, 40:] = 0
+    eps = torch.from_numpy((rng.integers(0, 2, y.shape) * 2 - 1).astype(
+        np.float32))
+    results = []
+    for dev in (device, torch.device('cpu')):
+        model = _seeded_model(cfg, ckpt, dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        res = score_batch(model, *(a.to(dev) for a in (x, x_lengths, y,
+                                                       y_lengths)),
+                          n_euler=LIK_SLICE_STEPS, epsilon=eps.to(dev))
+        res = {k: getattr(res, k).cpu() for k in ('score', 'prior_logp',
+                                                   'delta_logp', 'z')}
+        results.append((res, read_counts(), time.perf_counter() - t0))
+    (g, counts, g_s), (c, cpu_counts, c_s) = results
+    rel = {k: float(((g[k] - c[k]).abs() / c[k].abs()).max())
+           for k in ('score', 'prior_logp', 'delta_logp')}
+    z_frac = float((g['z'] - c['z']).abs().max() / c['z'].abs().max())
+    emit({'phase': 'likelihood_slice', 'steps': LIK_SLICE_STEPS,
+          'score_gpu': g['score'].tolist(), 'score_cpu': c['score'].tolist(),
+          'prior_logp_gpu': g['prior_logp'].tolist(),
+          'delta_logp_gpu': g['delta_logp'].tolist(), 'rel_err': rel,
+          'z_err_of_max': z_frac, 'rtol': LIK_SLICE_RTOL,
+          'gpu_launches': counts, 'cpu_launches': cpu_counts, 'gpu_s': g_s,
+          'cpu_s': c_s})
+    require(all(bool(torch.isfinite(v).all()) for v in g.values()),
+            'likelihood_slice: GPU result not finite')
+    require(max(rel.values()) <= LIK_SLICE_RTOL and z_frac <= LIK_SLICE_RTOL,
+            f'likelihood_slice: GPU vs CPU {rel}, z {z_frac}')
+    require(counts == likelihood_counts(LIK_SLICE_STEPS),
+            f'likelihood_slice: GPU launches {counts}')
+    require(not any(cpu_counts.values()),
+            'likelihood_slice: the CPU run launched kernels')
+
+
+# ---- phase 9 ---------------------------------------------------------------
+
+NBEST_UTTS, NBEST_N = 4, 2
+
+
+def phase_nbest_cli(ckpt):
+    import numpy as np
+    from gradtts_tpu_torch.nbest import make_synthetic_n_best, save_n_best
+
+    directory = os.path.join(WORK, 'nbest')
+    filelist = write_corpus(os.path.join(directory, 'wavs'), NBEST_UTTS)
+    with open(filelist, encoding='utf-8') as f:
+        texts = [ln.rstrip('\n').split('|')[1] for ln in f]
+    # hypothesis 0 is the transcript, 1 drops its second word
+    entries = [{'target': t, 'hyps': [t, ' '.join(
+        w for k, w in enumerate(t.split()) if k != 1)]} for t in texts]
+    pkl = os.path.join(directory, 'nbest.pkl')
+    save_n_best(make_synthetic_n_best(entries, seed=6), pkl)
+    out_dir = os.path.join(directory, 'scores')
+    npy = os.path.join(directory, 'scores.npy')
+    if os.path.isdir(out_dir):
+        for name in os.listdir(out_dir):
+            os.unlink(os.path.join(out_dir, name))
+    module = 'gradtts_tpu_torch.cli.nbest'
+    proc, score_s = _run_cli(module, [
+        'score', '--n-best', pkl, '--checkpoint', ckpt, '--filelist',
+        filelist, '--out-dir', out_dir, '--preset', 'ljspeech', '-N',
+        str(NBEST_N), '--n-euler', str(STEPS)])
+    print(proc.stdout, end='')
+    _, compile_s = _run_cli(module, ['compile', '--directory', out_dir, '-I',
+                                     str(NBEST_UTTS), '-N', str(NBEST_N),
+                                     '--out', npy])
+    rescored, _ = _run_cli(module, ['rescore', '--n-best', pkl,
+                                    '--diff-scores', npy, '-n', str(NBEST_N),
+                                    '--weight', 'diffusion_score=-0.001'])
+    mat = np.load(npy)
+    shards = sorted(f for f in os.listdir(out_dir) if f.endswith('.json'))
+    result = json.loads(rescored.stdout)
+    emit({'phase': 'nbest_cli', 'utterances': NBEST_UTTS, 'N': NBEST_N,
+          'euler_steps': STEPS, 'pairs_scored': len(shards),
+          'scores': mat.tolist(), 'rescored_wer': result['wer'],
+          'score_seconds': score_s, 'compile_seconds': compile_s})
+    require(len(shards) == NBEST_UTTS * NBEST_N,
+            f'nbest_cli: {len(shards)} score shards')
+    require(mat.shape == (NBEST_UTTS, NBEST_N) and np.isfinite(mat).all()
+            and (mat != 0).all(), 'nbest_cli: a pair has no finite score')
+    require(bool((mat[:, 0] != mat[:, 1]).all()),
+            'nbest_cli: two hypotheses of one utterance scored the same')
+
+
+# ---- phase 10 --------------------------------------------------------------
+
+
+def phase_likelihood(device, card, ckpt):
+    import numpy as np
+    import torch
+    from gradtts_tpu_torch.config import get_config
+    from gradtts_tpu_torch.models.tts import set_compute_dtype
+    from gradtts_tpu_torch.nbest.scoring import score_batch
+
+    cfg = get_config('ljspeech')
+    model = set_compute_dtype(_seeded_model(cfg, ckpt, device),
+                              torch.bfloat16)
+    rng = np.random.default_rng(7)
+    batch = [a.to(device) for a in _likelihood_batch(
+        cfg, rng, LIK_B, LIK_TX, LIK_TY, [LIK_TY] * LIK_B)]
+    gen = torch.Generator(device=device).manual_seed(0)
+
+    def run():
+        res = score_batch(model, *batch, n_euler=LIK_STEPS, generator=gen)
+        torch.cuda.synchronize()
+        return res
+
+    run()                                           # warm-up
+    reset_counts()
+    res = run()                                     # the main path's run
+    counts = read_counts()
+    require(counts == likelihood_counts(LIK_STEPS),
+            f'likelihood: launches per call {counts}, expected '
+            f'{likelihood_counts(LIK_STEPS)}')
+    require(bool(torch.isfinite(res.score).all()),
+            'likelihood: score not finite')
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        run()
+        times.append(time.perf_counter() - t0)
+    per_call = statistics.median(times)
+    share = _device_share(run, per_call * 1e3, 'likelihood')
+    emit({'phase': 'likelihood', 'card': card, 'batch': LIK_B,
+          'k1_tangent_per_call': _k1_tangent_share(device),
+          'tx': LIK_TX, 'ty': LIK_TY, 'euler_steps': LIK_STEPS,
+          'dtype': 'bfloat16 compute, float32 ODE state',
+          'seconds_per_call': per_call, 'seconds_all': times,
+          'hypotheses_per_s': LIK_B / per_call,
+          'launches_per_call': counts, 'scores': res.score.tolist(), **share})
+    return counts
+
+
+def _k1_tangent_share(device):
+    """Kernels and device ms of K1's forward-mode rule (its plain version
+    differentiated by torch.func.jvp) over the 25 Blocks of one drift
+    evaluation at the likelihood shapes, times the 10 Euler steps."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from gradtts_tpu_torch.ops import groupnorm_mish as gn
+    rng = np.random.default_rng(9)
+    n_kernels, busy = 0, 0.0
+    for (F, T, C), n_blocks, _ in LIK_LEVELS:
+        x, dx = (torch.tensor(rng.standard_normal((LIK_B, F, T, C)),
+                              device=device).to(torch.bfloat16)
+                 for _ in range(2))
+        mask = torch.ones((LIK_B, 1, T, 1), device=device,
+                          dtype=torch.bfloat16)
+        gamma, beta = (torch.ones(C, device=device) for _ in range(2))
+        rule = gn.GroupNormMishFn.jvp
+        ctx = type('Ctx', (), {'saved_tensors': (x, mask, gamma, beta),
+                               'groups': 8, 'eps': 1e-5})()
+        rule(ctx, dx, None, None, None)                  # warm-up
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            rule(ctx, dx, None, None, None)
+            torch.cuda.synchronize()
+        kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+                and not getattr(e, 'is_user_annotation', False)]
+        n_kernels += n_blocks * len(kern)
+        busy += n_blocks * sum(e.time_range.elapsed_us() for e in kern) / 1e3
+    return {'kernels': n_kernels * LIK_STEPS, 'device_ms': busy * LIK_STEPS}
+
+
+# ---- phase 11 --------------------------------------------------------------
+
+ADAPTIVE_TOL, ADAPTIVE_MAX_STEPS = 1e-2, 280
+
+
+def phase_adaptive(device, ckpt):
+    import numpy as np
+    import torch
+    from gradtts_tpu_torch.config import get_config
+    from gradtts_tpu_torch.nbest.scoring import score_batch
+
+    cfg = get_config('ljspeech')
+    model = _seeded_model(cfg, ckpt, device)
+    rng = np.random.default_rng(8)
+    batch = [a.to(device) for a in _likelihood_batch(cfg, rng, 2, 64, 256,
+                                                     [256, 200])]
+    t0 = time.perf_counter()
+    res = score_batch(model, *batch, n_euler=0, rtol=ADAPTIVE_TOL,
+                      atol=ADAPTIVE_TOL, max_steps=ADAPTIVE_MAX_STEPS,
+                      generator=torch.Generator(device=device).manual_seed(0))
+    torch.cuda.synchronize()
+    emit({'phase': 'adaptive', 'rtol': ADAPTIVE_TOL, 'atol': ADAPTIVE_TOL,
+          'max_steps': ADAPTIVE_MAX_STEPS, 'nfe': res.nfe,
+          'converged': res.converged, 'score': res.score.tolist(),
+          'seconds': time.perf_counter() - t0})
+    require(bool(torch.isfinite(res.score).all()),
+            'adaptive: score not finite')
+
+
 HAND_KERNELS = ('gn_stats_kernel', 'gn_apply_kernel', 'la_stats_kernel',
                 'la_apply_kernel', 'la_bwd1_kernel', 'la_bwd2_kernel',
-                'mas_kernel')
+                'la_jvp_stats_kernel', 'la_jvp_apply_kernel', 'mas_kernel')
 
 
 def _family(name):
@@ -805,8 +1178,9 @@ def _family(name):
 
 
 def _device_share(run, call_ms, what):
-    """Device time by kernel over one call of ``run`` (a synthesis or a
-    train step) from torch.profiler, against its unprofiled time."""
+    """Device time by kernel over one call of ``run`` (a synthesis, a train
+    step or a likelihood score) from torch.profiler, against its
+    unprofiled time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -844,6 +1218,10 @@ SOURCES = {'groupnorm_mish': 'gradtts_tpu_torch/csrc/groupnorm_mish.cu',
                'gradtts_tpu_torch/csrc/linear_attention_bwd.cu',
            'attention_bwd_sweep2':
                'gradtts_tpu_torch/csrc/linear_attention_bwd.cu',
+           'attention_jvp_stats':
+               'gradtts_tpu_torch/csrc/linear_attention_jvp.cu',
+           'attention_jvp_apply':
+               'gradtts_tpu_torch/csrc/linear_attention_jvp.cu',
            'maximum_path': 'gradtts_tpu_torch/csrc/mas.cu'}
 # the TPU kernels replaced (MAS: the lax.scan maximum_path, not Pallas)
 REPLACES = {
@@ -852,7 +1230,14 @@ REPLACES = {
     'attention_apply': 'gradtts_tpu/ops/pallas/linear_attention.py:113',
     'attention_bwd_sweep1': 'gradtts_tpu/ops/pallas/linear_attention.py:329',
     'attention_bwd_sweep2': 'gradtts_tpu/ops/pallas/linear_attention.py:381',
+    'attention_jvp_stats': 'gradtts_tpu/ops/pallas/linear_attention.py:651',
+    'attention_jvp_apply': 'gradtts_tpu/ops/pallas/linear_attention.py:724',
     'maximum_path': 'gradtts_tpu/ops/mas.py:88'}
+PER = {'synth': 'sum over the launches of one U-Net call, B 8, Ty 768, bf16',
+       'train': 'sum over the launches of one train step, B 16, 172-frame '
+                'crops, bf16',
+       'likelihood': 'sum over the launches of one drift evaluation (U-Net '
+                     'forward and jvp), B 8, Ty 512, bf16'}
 
 
 def main():
@@ -882,33 +1267,34 @@ def main():
         synth_counts = phase_synth(device, card)
         phase_train_slice(device, ckpt)
         train_counts = phase_train(device, card)
+        phase_likelihood_slice(device, ckpt)
+        phase_nbest_cli(ckpt)
+        lik_counts = phase_likelihood(device, card, ckpt)
+        phase_adaptive(device, ckpt)
     except SmokeFailure as e:
         print(f'chip_smoke: FAILED: {e}', file=sys.stderr, flush=True)
         return 1
     kernels = []
+    counts = {'synth': synth_counts, 'train': train_counts,
+              'likelihood': lik_counts}
     for name, st in stats.items():
         # K1-K3 are read on the synthesis path, K4, K5 and MAS on the
-        # training path that runs them
-        path = 'synth' if synth_counts[name] else 'train'
+        # training path, K6 and K7 on the likelihood path that runs them
+        path = next(p for p in counts if counts[p][name])
         sums = st[path]
         kernels.append({
             'name': name, 'route': 'cuda', 'source': SOURCES[name],
             'replaces': REPLACES[name],
-            'launches': (synth_counts if path == 'synth'
-                         else train_counts)[name],
+            'launches': counts[path][name],
             'max_abs_err': st['max_abs_err'], 'ms': sums['ms'],
             'plain_ms': sums['plain_ms'],
             'bound_ms': max(sums['bytes_ms'], sums['ops_ms']),
             'bound_by': 'bytes' if sums['bytes_ms'] >= sums['ops_ms']
             else 'operations',
             'library_ms': None,
-            'launches_per_path': {'synth': synth_counts[name],
-                                  'train': train_counts[name]},
-            'per': ('sum over the launches of one U-Net call, B 8, Ty 768, '
-                    'bf16') if path == 'synth' else
-                   ('sum over the launches of one train step, B 16, 172-'
-                    'frame crops, bf16' if name != 'maximum_path' else
-                    'one call at [16, 384, 1024], f32')})
+            'launches_per_path': {p: c[name] for p, c in counts.items()},
+            'per': PER[path] if name != 'maximum_path'
+            else 'one call at [16, 384, 1024], f32'})
     print(card)
     emit({'kernels': kernels})
     print(f'# total {time.perf_counter() - t_start:.1f} s', file=sys.stderr)

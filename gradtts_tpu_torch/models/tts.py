@@ -1,7 +1,10 @@
-"""GradTTS: the text-to-mel model, its synthesis and its training losses.
+"""GradTTS: the text-to-mel model, its synthesis, its training losses and
+the score closure of likelihood scoring.
 
 Counterpart of gradtts_tpu/models/tts.py (``GradTTS`` :33, ``synthesize``
-:145-211, ``_log_prior_grid`` :214, ``compute_loss`` :234-301). Submodules ``encoder`` and ``decoder.estimator`` carry the
+:145-211, ``_log_prior_grid`` :214, ``compute_loss`` :234-301,
+``get_score_fn`` :304-336). Submodules ``encoder`` and
+``decoder.estimator`` carry the
 reference torch ``state_dict`` layout, so a reference ``.pt`` file loads
 with ``load_state_dict(strict=True)``. Layouts at the public functions are
 the JAX package's: text ids [B, Tx], mels [B, Ty, F].
@@ -194,3 +197,25 @@ def compute_loss(model: GradTTS, x, x_lengths, y, y_lengths,
                       * y_mask)
     prior = prior / (torch.sum(y_mask) * model.n_feats)
     return LossResult(dur, prior, diff, attn)
+
+
+def get_score_fn(model: GradTTS, x, x_lengths, y, y_lengths):
+    """Score closure for (text hypothesis, real mel) pairs (``get_score_fn``
+    :304): encodes x [B, Tx], aligns the real mels y [B, Ty, F] to the
+    tokens by MAS on the log-prior grid (no grad) and returns (score_fn,
+    mu_y [B, Ty, F], y_mask [B, Ty, 1]); score_fn(x_t, t) is the U-Net's
+    score conditioned on mu_y. The port is single speaker, so there is no
+    speaker vector."""
+    mu_x, _logw, x_mask = model.encode(x, x_lengths)
+    y_mask = sequence_mask(y_lengths, y.shape[1])[..., None].to(x_mask)
+    attn_mask = x_mask[:, :, None, 0] * y_mask[:, None, :, 0]  # [B, Tx, Ty]
+    with torch.no_grad():
+        attn = maximum_path(_log_prior_grid(y, mu_x).contiguous(),
+                            attn_mask.contiguous())
+    mu_y = torch.einsum('bxy,bxf->byf', attn, mu_x)
+    mask = y_mask[..., 0]
+
+    def score_fn(x_t, t):
+        return model.estimate(x_t, mask, mu_y, t)
+
+    return score_fn, mu_y, y_mask

@@ -25,6 +25,8 @@ import tempfile
 import time
 
 import torch
+from torch._C import _functorch
+from torch.autograd import forward_ad
 
 PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PACKAGE_DIR, 'csrc')
@@ -63,6 +65,14 @@ SIGNATURES = {
         # x, dy, wk, wv, afullt, wqkv_t, m, dctx_t, dctx, dden, dx,
         # dwkv_part, B, N, C, chunk, S, dtype, stream
         'gtt_la_bwd2': (_P,) * 12 + (_I,) * 6 + (_P,),
+    },
+    'linear_attention_jvp': {
+        # x, dx, wk, wv, dwk, dwv (NULL: no weight tangents), m, ctx, den,
+        # dctx, dden, B, N, C, chunk, S, dtype, stream
+        'gtt_la_jvp_stats': (_P,) * 11 + (_I,) * 6 + (_P,),
+        # x, dx, wq, dwq (NULL: none), a, da, bias, dbias, y, dy, B, N, C,
+        # chunk, S, dtype, stream
+        'gtt_la_jvp_apply': (_P,) * 10 + (_I,) * 6 + (_P,),
     },
     'mas': {
         # value, mask, decision, path, B, Tx, Ty, stream
@@ -151,3 +161,33 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
 def stream_of(t: torch.Tensor) -> int:
     """PyTorch's current stream on ``t``'s device, as the kernels take it."""
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def needs_function(tensors) -> bool:
+    """Whether a call must go through its autograd Function: a grad may be
+    asked for, or an input carries a forward-mode tangent (a ``torch.func``
+    transform's wrapper, or a ``forward_ad`` dual), which ``requires_grad``
+    does not show. Under ``torch.inference_mode()`` neither can."""
+    if torch.is_inference_mode_enabled():
+        return False
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        return True
+    return any(_functorch.is_functorch_wrapped_tensor(t)
+               or forward_ad.unpack_dual(t).tangent is not None
+               for t in tensors)
+
+
+def raw(t):
+    """The tensor under one ``torch.func`` transform's wrapper (None stays
+    None). An autograd Function's ``jvp`` rule gets its saved primals and
+    tangents wrapped at the transform's level, which have no storage; the
+    kernels take the values underneath. A tensor wrapped twice (a jvp under
+    another transform) is refused: the rules' kernels are not
+    differentiable again."""
+    if t is None or not _functorch.is_functorch_wrapped_tensor(t):
+        return t
+    t = _functorch.get_unwrapped(t)
+    if _functorch.is_functorch_wrapped_tensor(t):
+        raise NotImplementedError('a kernel rule was asked for under two '
+                                  'nested torch.func transforms')
+    return t

@@ -97,17 +97,27 @@ def _forward(x, mask, gamma, beta, groups, eps):
 class GroupNormMishFn(torch.autograd.Function):
     """Forward: the kernel on CUDA tensors, the plain version on CPU ones.
     Backward: recomputes :func:`groupnorm_mish_plain` and differentiates it,
-    as the JAX package's ``_bwd`` (:209-215) recomputes ``_reference``. The
-    mask gets no grad."""
+    as the JAX package's ``_bwd`` (:209-215) recomputes ``_reference``.
+    Forward mode (``jvp``): the same recompute, differentiated in forward
+    mode, as ``jax.jvp`` differentiates the jnp twin the JAX package runs
+    in its likelihood engine. The mask gets no grad and no tangent."""
 
     @staticmethod
-    def forward(ctx, x, mask, gamma, beta, groups, eps):
-        ctx.save_for_backward(x, mask, gamma, beta)
-        ctx.groups, ctx.eps = groups, eps
+    def forward(x, mask, gamma, beta, groups, eps):
         return _forward(x, mask, gamma, beta, groups, eps)
 
     @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, mask, gamma, beta, groups, eps = inputs
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, mask, gamma, beta)
+        ctx.save_for_forward(x, mask, gamma, beta)
+        ctx.groups, ctx.eps = groups, eps
+
+    @staticmethod
     def backward(ctx, dy):
+        if dy is None:
+            return (None,) * 6
         x, mask, gamma, beta = ctx.saved_tensors
         inputs = [t.detach().requires_grad_() for t in (x, gamma, beta)]
         with torch.enable_grad():
@@ -116,15 +126,32 @@ class GroupNormMishFn(torch.autograd.Function):
             dx, dgamma, dbeta = torch.autograd.grad(y, inputs, dy)
         return dx, None, dgamma, dbeta, None, None
 
+    @staticmethod
+    def jvp(ctx, dx, _dmask, dgamma, dbeta, *_):
+        x, mask, gamma, beta = map(_build.raw, ctx.saved_tensors)
+        primals = {'x': x, 'gamma': gamma, 'beta': beta}
+        tangents = {k: _build.raw(t) for k, t in
+                    (('x', dx), ('gamma', dgamma), ('beta', dbeta))
+                    if t is not None}
+        if not tangents:
+            return None
+
+        def plain(*moving):
+            args = {**primals, **dict(zip(tangents, moving))}
+            return groupnorm_mish_plain(args['x'], mask, args['gamma'],
+                                        args['beta'], ctx.groups, ctx.eps)
+
+        return torch.func.jvp(plain, tuple(primals[k] for k in tangents),
+                              tuple(tangents.values()))[1]
+
 
 def groupnorm_mish(x, mask, gamma, beta, groups: int = 8, eps: float = 1e-5):
     """x [B, F, T, C] contiguous; mask [B, 1, T, 1] in x's dtype; gamma,
     beta [C] f32. CPU tensors take :func:`groupnorm_mish_plain`; CUDA
     tensors launch the kernel (two passes) or raise. Differentiable in x,
-    gamma and beta, through :class:`GroupNormMishFn` where a grad is
-    needed."""
-    if torch.is_grad_enabled() and any(t.requires_grad
-                                       for t in (x, gamma, beta)):
+    gamma and beta in both modes, through :class:`GroupNormMishFn` where a
+    grad or a forward-mode tangent may be asked for."""
+    if _build.needs_function((x, gamma, beta)):
         return GroupNormMishFn.apply(x, mask, gamma, beta, groups, eps)
     return _forward(x, mask, gamma, beta, groups, eps)
 

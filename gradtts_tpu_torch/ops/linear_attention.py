@@ -1,14 +1,16 @@
-"""Linear attention + ReZero residual, forward and backward (kernels K2-K5
-of the port).
+"""Linear attention + ReZero residual, forward, backward and forward-mode
+tangent (kernels K2-K7 of the port).
 
 Counterpart of gradtts_tpu/ops/pallas/linear_attention.py: the forward
 ``_stats_kernel`` (:58) and ``_apply_kernel`` (:113) driven by ``_forward``
 (:146), whose result equals the jnp twin ``_reference`` (:227); the
 streaming backward ``_bwd_sweep1_kernel`` (:329) and ``_bwd_sweep2_kernel``
-(:381) driven by ``_backward_pallas`` (:444), phases=1 layout. The CUDA
-kernels are in ``csrc/linear_attention.cu`` (K2, K3) and
-``csrc/linear_attention_bwd.cu`` (K4, K5); their sources say what bounds
-them on the H100 and how they are laid out.
+(:381) driven by ``_backward_pallas`` (:444); and the forward-mode sweeps
+``_jvp_stats_kernel`` (:651) and ``_jvp_apply_kernel`` (:724) driven by
+``_jvp_pallas`` (:742), phases=1 layout. The CUDA kernels are in
+``csrc/linear_attention.cu`` (K2, K3), ``csrc/linear_attention_bwd.cu``
+(K4, K5) and ``csrc/linear_attention_jvp.cu`` (K6, K7); their sources say
+what bounds them on the H100 and how they are laid out.
 
 For x [B, N = F*T, C] and H = heads * dim_head:
 
@@ -23,10 +25,20 @@ For x [B, N = F*T, C] and H = heads * dim_head:
      batch dWq = x^T (dy A_full^T), db = sum dy, dgv = sum dy (q A_pre + b);
   K5 ``attention_bwd_sweep2``: recomputes exp(x Wk - m) and x Wv, emits
      dx = dy + dq Wq^T + dk Wk^T + dv Wv^T and sums dWk, dWv over the batch;
-     dctx is taken as block diagonal over the heads.
+     dctx is taken as block diagonal over the heads;
+  K6 ``attention_jvp_stats``: K2's statistics and their tangents along
+     (dx, dWk, dWv) under the same running max (m is stop-gradient): the
+     head-diagonal blocks of ctx and dctx = sum dek v^T + ek dv^T, den and
+     dden = sum dek, with dek = exp(k - m) * dk;
+  ``merge_jvp_stats`` and ``fold_context_jvp``: the split merge and the
+     fold, with the quotient and product rules for the tangents
+     (``_jvp_pallas`` :800-817);
+  K7 ``attention_jvp_apply``: y = x + q A + bias and its tangent dy = dx +
+     q dA + dq A + dbias, with q and dq rounded to x's dtype.
 
-:class:`LinearAttentionRezeroFn` ties them together for autograd; the host
-algebra between K4 and K5 is ``_backward_pallas`` :459-478 and :515-538.
+:class:`LinearAttentionRezeroFn` ties them together for autograd, in both
+modes; the host algebra between K4 and K5 is ``_backward_pallas`` :459-478
+and :515-538.
 """
 
 import torch
@@ -136,6 +148,65 @@ def attention_bwd_sweep2_plain(x, dy, w_q, w_k, w_v, m, a_full_t, dctx,
           + dv @ w_v.float().t())
     xt = xf.transpose(1, 2)
     return dx.to(dt), (xt @ dk).sum(dim=0), (xt @ dv).sum(dim=0)
+
+
+def _head_blocks(a, b, dim_head):
+    """sum over rows of a^T b, head-diagonal blocks only: a, b [..., n, H]
+    -> [..., H / dim_head, dim_head, dim_head]."""
+    a = a.reshape(*a.shape[:-1], -1, dim_head)
+    b = b.reshape(*b.shape[:-1], -1, dim_head)
+    return torch.einsum('...nhd,...nhe->...hde', a, b)
+
+
+def attention_jvp_stats_plain(x, dx, w_k, w_v, dw_k, dw_v, chunk: int,
+                              dim_head: int = DIM_HEAD):
+    """x, dx [B, N, C]; w_k, w_v and the tangents dw_k, dw_v [C, H], all in
+    x's dtype; dw_k and dw_v may both be None (zero). Returns f32 (m, ctx,
+    den, dctx, dden) for the S = ceil(N / chunk) splits of the rows: m, den
+    and dden [B, S, H]; ctx and dctx [B, S, H / dim_head, dim_head,
+    dim_head], the head-diagonal blocks (the fold reads no other entry).
+    k, v and their tangents stay f32, as in ``_jvp_stats_kernel``. The
+    splits are computed at once, as rows [B, S, chunk] padded past N."""
+    B, N, C = x.shape
+    S = -(-N // chunk)
+
+    def rows(t):
+        t = torch.nn.functional.pad(t.float(), (0, 0, 0, S * chunk - N))
+        return t.reshape(B, S, chunk, C)
+
+    xs, dxs = rows(x), rows(dx)
+    k, v = xs @ w_k.float(), xs @ w_v.float()          # [B, S, chunk, H]
+    dk, dv = dxs @ w_k.float(), dxs @ w_v.float()
+    if dw_k is not None:
+        dk = xs @ dw_k.float() + dk
+        dv = xs @ dw_v.float() + dv
+    valid = (torch.arange(S * chunk, device=x.device) < N).reshape(
+        S, chunk, 1)
+    m = k.masked_fill(~valid, float('-inf')).amax(dim=2)       # [B, S, H]
+    ek = torch.exp(k - m[:, :, None, :]) * valid
+    dek = ek * dk                                       # m stop-grad
+    return (m, _head_blocks(ek, v, dim_head), ek.sum(dim=2),
+            _head_blocks(dek, v, dim_head) + _head_blocks(ek, dv, dim_head),
+            dek.sum(dim=2))
+
+
+def attention_jvp_apply_plain(x, dx, w_q, dw_q, a, da, bias, dbias):
+    """x, dx [B, N, C]; w_q, dw_q [C, H] and a, da [B, H, C] in x's dtype
+    (dw_q may be None: zero); bias, dbias [C] f32. Returns (y, dy) in x's
+    dtype: y = q A + bias + x and dy = q dA + dq A + dbias + dx, with
+    q = x Wq and dq = dx Wq + x dWq rounded to x's dtype before their
+    products (``_jvp_apply_kernel`` :731-732)."""
+    dt = x.dtype
+    xf, dxf = x.float(), dx.float()
+    q = xf @ w_q.float()
+    dq = dxf @ w_q.float()
+    if dw_q is not None:
+        dq = xf @ dw_q.float() + dq
+    q, dq = q.to(dt).float(), dq.to(dt).float()
+    af = a.float()
+    y = q @ af + bias.float() + xf
+    dy = (q @ da.float() + dq @ af) + dbias.float() + dxf
+    return y.to(dt), dy.to(dt)
 
 
 # ---- the kernels' wrappers -------------------------------------------------
@@ -283,6 +354,83 @@ def attention_bwd_sweep2(x, dy, w_q, w_k, w_v, m, a_full_t, dctx, dden,
 attention_bwd_sweep2.launches = 0
 
 
+def attention_jvp_stats(x, dx, w_k, w_v, dw_k, dw_v, chunk: int,
+                        dim_head: int = DIM_HEAD):
+    """K6. Same contract as :func:`attention_jvp_stats_plain`; CPU tensors
+    take the plain version, CUDA tensors launch the kernel (built for
+    ``dim_head`` 32; the variant without weight tangents when dw_k and dw_v
+    are None) or raise."""
+    if x.device.type == 'cpu':
+        return attention_jvp_stats_plain(x, dx, w_k, w_v, dw_k, dw_v, chunk,
+                                         dim_head)
+    if dim_head != DIM_HEAD:
+        raise ValueError(f'attention_jvp_stats: the kernel is built for '
+                         f'dim_head {DIM_HEAD}, got {dim_head}')
+    if (dw_k is None) != (dw_v is None):
+        raise ValueError('attention_jvp_stats: dw_k and dw_v are given '
+                         'together or not at all')
+    B, N, C = x.shape
+    H, nh = HIDDEN, HIDDEN // DIM_HEAD
+    tensors = {'dx': dx, 'w_k': w_k, 'w_v': w_v}
+    if dw_k is not None:
+        tensors.update(dw_k=dw_k, dw_v=dw_v)
+    _check('attention_jvp_stats', x, tensors,
+           [((B, N, C), x.dtype)] + [((C, H), x.dtype)] * (len(tensors) - 1))
+    S = -(-N // chunk)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    m, den, dden = (torch.empty((B, S, H), **f32) for _ in range(3))
+    ctx, dctx = (torch.empty((B, S, nh, DIM_HEAD, DIM_HEAD), **f32)
+                 for _ in range(2))
+    lib = _build.load('linear_attention_jvp')
+    _build.check(lib, lib.gtt_la_jvp_stats(
+        x.data_ptr(), dx.data_ptr(), w_k.data_ptr(), w_v.data_ptr(),
+        None if dw_k is None else dw_k.data_ptr(),
+        None if dw_v is None else dw_v.data_ptr(), m.data_ptr(),
+        ctx.data_ptr(), den.data_ptr(), dctx.data_ptr(), dden.data_ptr(),
+        B, N, C, chunk, S, _build.DTYPE_CODES[x.dtype],
+        _build.stream_of(x)), 'gtt_la_jvp_stats')
+    attention_jvp_stats.launches += 1
+    return m, ctx, den, dctx, dden
+
+
+attention_jvp_stats.launches = 0
+
+
+def attention_jvp_apply(x, dx, w_q, dw_q, a, da, bias, dbias):
+    """K7. Same contract as :func:`attention_jvp_apply_plain`; CPU tensors
+    take the plain version, CUDA tensors launch the kernel (the variant
+    without a weight tangent when dw_q is None) or raise."""
+    if x.device.type == 'cpu':
+        return attention_jvp_apply_plain(x, dx, w_q, dw_q, a, da, bias,
+                                         dbias)
+    B, N, C = x.shape
+    H = HIDDEN
+    tensors = {'dx': dx, 'w_q': w_q, 'a': a, 'da': da, 'bias': bias,
+               'dbias': dbias}
+    shapes = [((B, N, C), x.dtype), ((C, H), x.dtype), ((B, H, C), x.dtype),
+              ((B, H, C), x.dtype), ((C,), torch.float32),
+              ((C,), torch.float32)]
+    if dw_q is not None:
+        tensors['dw_q'] = dw_q
+        shapes.append(((C, H), x.dtype))
+    _check('attention_jvp_apply', x, tensors, shapes)
+    chunk = split_chunk(B, N)
+    y, dy = torch.empty_like(x), torch.empty_like(x)
+    lib = _build.load('linear_attention_jvp')
+    _build.check(lib, lib.gtt_la_jvp_apply(
+        x.data_ptr(), dx.data_ptr(), w_q.data_ptr(),
+        None if dw_q is None else dw_q.data_ptr(), a.data_ptr(),
+        da.data_ptr(), bias.data_ptr(), dbias.data_ptr(), y.data_ptr(),
+        dy.data_ptr(), B, N, C, chunk, -(-N // chunk),
+        _build.DTYPE_CODES[x.dtype], _build.stream_of(x)),
+        'gtt_la_jvp_apply')
+    attention_jvp_apply.launches += 1
+    return y, dy
+
+
+attention_jvp_apply.launches = 0
+
+
 # ---- merge, fold and the whole op ------------------------------------------
 
 
@@ -321,29 +469,123 @@ def _forward(x, w_q, w_k, w_v, w_out, b_out, g, dim_head, chunk, ops):
     return out.reshape(B, F, T, C), m, cx, den
 
 
+def merge_jvp_stats(m, ctx, den, dctx, dden):
+    """Merges K6's per-split statistics into (ctx, den, dctx, dden), each
+    without its split axis, with the rescale exp(m_s - m) of
+    :func:`merge_stats`; m is stop-gradient, so the rescale has no tangent
+    and scales the tangents alike. ctx and dctx are [B, S, heads, dh, dh]
+    head blocks, rescaled by their row's max."""
+    m_all = m.amax(dim=1)                                    # [B, H]
+    alpha = torch.exp(m - m_all[:, None, :])                 # [B, S, H]
+    a_rows = alpha.reshape(ctx.shape[:-1])[..., None]        # per block row
+    return ((ctx * a_rows).sum(dim=1), (den * alpha).sum(dim=1),
+            (dctx * a_rows).sum(dim=1), (dden * alpha).sum(dim=1))
+
+
+def fold_context_jvp(ctx, den, dctx, dden, w_out, b_out, g, dw_out, db_out,
+                     dg):
+    """The primal fold of :func:`fold_context` and its tangent, in f32, on
+    head blocks ctx, dctx [B, heads, dh, dh] and den, dden [B, H]; the
+    weight tangents dw_out [H, C], db_out [C] and dg may be None (zero).
+    Returns (A [B, H, C], dA, bias [C], dbias): with ctx2n = ctx / den,
+    A = ctx2n Wout g, dA = (dctx2n Wout + ctx2n dWout) g + ctx2n Wout dg
+    where dctx2n = dctx / den - ctx2n dden / den (``_jvp_pallas``
+    :800-817)."""
+    B, nh, dh, _ = ctx.shape
+    g = g.float().reshape(())
+    den_h = den.reshape(B, nh, dh, 1)
+    ctx2n = ctx / den_h
+    dctx2n = dctx / den_h - ctx2n * (dden.reshape(B, nh, dh, 1) / den_h)
+    w_h = w_out.float().reshape(nh, dh, -1)                  # [heads, dh, C]
+
+    def project(c, w):
+        return torch.einsum('bhde,hec->bhdc', c, w).reshape(B, nh * dh, -1)
+
+    a_pre = project(ctx2n, w_h)
+    da_pre = project(dctx2n, w_h)
+    if dw_out is not None:
+        da_pre = da_pre + project(ctx2n, dw_out.float().reshape(nh, dh, -1))
+    b32 = b_out.float()
+    da = da_pre * g
+    dbias = torch.zeros_like(b32) if db_out is None else db_out.float() * g
+    if dg is not None:
+        dg = dg.float().reshape(())
+        da, dbias = da + a_pre * dg, dbias + b32 * dg
+    return a_pre * g, da, b32 * g, dbias
+
+
+def _jvp(x, dx, w_q, w_k, w_v, w_out, b_out, g, tangents, dim_head, chunk,
+         ops):
+    """K6 -> merge -> fold -> K7 (or their plain versions, ``ops``) on
+    plain tensors: returns dy [B, F, T, C] in x's dtype. ``tangents``
+    are those of (w_q, w_k, w_v, w_out, b_out, g), each None where zero;
+    dx is None where zero."""
+    jvp_stats, jvp_apply = ops
+    dwq, dwk, dwv, dwout, dbout, dg = tangents
+    B, F, T, C = x.shape
+    dt = x.dtype
+    xr = x.reshape(B, F * T, C)
+    dxr = (torch.zeros_like(xr) if dx is None
+           else dx.to(dt).reshape(B, F * T, C).contiguous())
+    if chunk is None:
+        chunk = split_chunk(B, F * T)
+
+    def cast(w):
+        return None if w is None else w.to(dt).contiguous()
+
+    if (dwk is None) != (dwv is None):   # K6 takes both or neither
+        dwk = torch.zeros_like(w_k) if dwk is None else dwk
+        dwv = torch.zeros_like(w_v) if dwv is None else dwv
+    cx, den, dcx, dden = merge_jvp_stats(*jvp_stats(
+        xr, dxr, cast(w_k), cast(w_v), cast(dwk), cast(dwv), chunk,
+        dim_head))
+    a, da, bias, dbias = fold_context_jvp(cx, den, dcx, dden, w_out, b_out,
+                                          g, dwout, dbout, dg)
+    _, dy = jvp_apply(xr, dxr, cast(w_q), cast(dwq), a.to(dt).contiguous(),
+                      da.to(dt).contiguous(), bias, dbias.contiguous())
+    return dy.reshape(B, F, T, C)
+
+
 class LinearAttentionRezeroFn(torch.autograd.Function):
     """(x [B, F, T, C]; w_q, w_k, w_v [C, H]; w_out [H, C]; b_out [C]; g [1])
-    -> (attention(x) @ w_out + b_out) * g + x in x's dtype. The weights may
-    be f32 under a bf16 x: they are cast to x's dtype at use, and their
-    grads come back in their own dtype. The running max m is
-    stop-gradient, as in ``models/diffusion.py:423`` of the JAX package.
+    -> (out, m, ctx, den): out = (attention(x) @ w_out + b_out) * g + x in
+    x's dtype, and the merged statistics of the forward (not
+    differentiable; the backward reads them). The weights may be f32 under
+    a bf16 x: they are cast to x's dtype at use, and their grads come back
+    in their own dtype. The running max m is stop-gradient, as in
+    ``models/diffusion.py:423`` of the JAX package.
 
-    ``ops`` = (stats, apply, sweep1, sweep2): the kernels' wrappers, or
-    their plain versions."""
+    Reverse mode (``backward``): K4 and K5 around the host algebra of
+    ``_backward_pallas``. Forward mode (``jvp``, for ``torch.func.jvp`` and
+    ``torch.autograd.forward_ad``): K6 -> merge -> fold -> K7, as
+    ``_jvp_pallas``; it recomputes the primal statistics under its own
+    running max, as the Pallas rule does. Tangents that are absent arrive
+    as None (``set_materialize_grads(False)``) and cost nothing.
+
+    ``ops`` = (stats, apply, sweep1, sweep2, jvp_stats, jvp_apply): the
+    kernels' wrappers, or their plain versions."""
 
     @staticmethod
-    def forward(ctx, x, w_q, w_k, w_v, w_out, b_out, g, dim_head, chunk,
-                ops):
-        out, m, cx, den = _forward(x, w_q, w_k, w_v, w_out, b_out, g,
-                                   dim_head, chunk, ops)
+    def forward(x, w_q, w_k, w_v, w_out, b_out, g, dim_head, chunk, ops):
+        return _forward(x, w_q, w_k, w_v, w_out, b_out, g, dim_head, chunk,
+                        ops)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, w_q, w_k, w_v, w_out, b_out, g, dim_head, chunk, ops = inputs
+        _, m, cx, den = output
+        ctx.set_materialize_grads(False)
+        ctx.mark_non_differentiable(m, cx, den)
         ctx.save_for_backward(x, w_q, w_k, w_v, w_out, b_out, g, m, cx, den)
-        ctx.dim_head, ctx.sweeps = dim_head, ops[2:]
-        return out
+        ctx.save_for_forward(x, w_q, w_k, w_v, w_out, b_out, g)
+        ctx.dim_head, ctx.chunk, ctx.ops = dim_head, chunk, ops
 
     @staticmethod
-    def backward(ctx, dy):
+    def backward(ctx, dy, _dm, _dctx, _dden):
+        if dy is None:
+            return (None,) * 10
         x, w_q, w_k, w_v, w_out, b_out, g, m, cx, den = ctx.saved_tensors
-        sweep1, sweep2 = ctx.sweeps
+        sweep1, sweep2 = ctx.ops[2:4]
         B, F, T, C = x.shape
         dt = x.dtype
         xr = x.reshape(B, F * T, C)
@@ -370,18 +612,35 @@ class LinearAttentionRezeroFn(torch.autograd.Function):
                 dwout.to(w_out.dtype), (db * g32).to(b_out.dtype),
                 dgv.sum().reshape(g.shape).to(g.dtype), None, None, None)
 
+    @staticmethod
+    def jvp(ctx, dx, dwq, dwk, dwv, dwout, dbout, dg, *_):
+        # under torch.func.jvp the saved primals and the tangents arrive
+        # wrapped at the transform's level, and every op would wrap its
+        # result again: the rule runs on the values underneath, with the
+        # transforms' dispatch off, so that the kernels can read them
+        with torch._C._DisableFuncTorch():
+            x, w_q, w_k, w_v, w_out, b_out, g = map(_build.raw,
+                                                    ctx.saved_tensors)
+            tangents = [_build.raw(t)
+                        for t in (dwq, dwk, dwv, dwout, dbout, dg)]
+            dy = _jvp(x, _build.raw(dx), w_q, w_k, w_v, w_out, b_out, g,
+                      tangents, ctx.dim_head, ctx.chunk, ctx.ops[4:])
+        return dy, None, None, None
+
 
 _KERNELS = (attention_stats, attention_apply, attention_bwd_sweep1,
-            attention_bwd_sweep2)
+            attention_bwd_sweep2, attention_jvp_stats, attention_jvp_apply)
 _PLAIN = (attention_stats_plain, attention_apply_plain,
-          attention_bwd_sweep1_plain, attention_bwd_sweep2_plain)
+          attention_bwd_sweep1_plain, attention_bwd_sweep2_plain,
+          attention_jvp_stats_plain, attention_jvp_apply_plain)
 
 
 def _run(ops, args, dim_head, chunk):
-    """Through the autograd Function where a grad is needed, else the
-    forward alone (no autograd bookkeeping on the synthesis path)."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
-        return LinearAttentionRezeroFn.apply(*args, dim_head, chunk, ops)
+    """Through the autograd Function where a grad or a forward-mode tangent
+    may be asked for, else the forward alone (no autograd bookkeeping on
+    the synthesis path)."""
+    if _build.needs_function(args):
+        return LinearAttentionRezeroFn.apply(*args, dim_head, chunk, ops)[0]
     return _forward(*args, dim_head, chunk, ops)[0]
 
 
@@ -389,9 +648,10 @@ def linear_attention_rezero(x, w_q, w_k, w_v, w_out, b_out, g,
                             dim_head: int = 32, chunk=None):
     """x [B, F, T, C] contiguous; w_q, w_k, w_v [C, H]; w_out [H, C];
     b_out [C]; g the ReZero gain ([1]). Returns (attention(x) @ w_out +
-    b_out) * g + x in x's dtype, through K2 and K3 and, under autograd, K4
-    and K5 (their plain versions for CPU tensors). ``chunk`` is the rows
-    per split of K2 (default: :func:`split_chunk`)."""
+    b_out) * g + x in x's dtype, through K2 and K3; under autograd its
+    grads through K4 and K5, under forward mode its tangent through K6 and
+    K7 (their plain versions for CPU tensors). ``chunk`` is the rows per
+    split of K2 and K6 (default: :func:`split_chunk`)."""
     return _run(_KERNELS, (x, w_q, w_k, w_v, w_out, b_out, g), dim_head,
                 chunk)
 
@@ -399,6 +659,6 @@ def linear_attention_rezero(x, w_q, w_k, w_v, w_out, b_out, g,
 def linear_attention_rezero_plain(x, w_q, w_k, w_v, w_out, b_out, g,
                                   dim_head: int = 32, chunk=None):
     """Plain PyTorch version of :func:`linear_attention_rezero`, with the
-    same splits, merge, fold and backward algebra, on any device."""
+    same splits, merge, fold, backward and tangent algebra, on any device."""
     return _run(_PLAIN, (x, w_q, w_k, w_v, w_out, b_out, g), dim_head,
                 chunk)

@@ -1,5 +1,5 @@
-"""The CUDA kernels (K1-K5, MAS) against their plain versions on an NVIDIA
-GPU; skipped without one. JAX-free, so it also runs where JAX is not installed:
+"""The CUDA kernels (K1-K7, MAS) against their plain versions on an NVIDIA
+GPU, and forward mode through the GPU U-Net; skipped without one. JAX-free, so it also runs where JAX is not installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
@@ -104,3 +104,74 @@ def test_maximum_path_kernel_equals_plain(cuda):
     got = mas.maximum_path(value, mask)
     torch.cuda.synchronize()
     assert torch.equal(got, mas.maximum_path_plain(value, mask))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('weight_tangents', [True, False])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_linear_attention_jvp_kernels_match_plain(cuda, dtype,
+                                                  weight_tangents):
+    # K6 (with and without weight tangents) and K7 at a ragged row count
+    # (40 * 43 rows) over several splits, against their plain versions
+    rng = np.random.default_rng(4)
+    B, N, C, H = 4, 40 * 43, 64, 128
+
+    def t(shape, scale=1.0, dt=dtype):
+        return torch.tensor(rng.standard_normal(shape) * scale,
+                            device=cuda).to(dt)
+
+    x, dx = t((B, N, C)), t((B, N, C))
+    w = [t((C, H), 0.5 / C ** 0.5) for _ in range(3)]
+    dw = [t((C, H), 0.05) for _ in range(3)] if weight_tangents \
+        else [None] * 3
+    chunk = tla.split_chunk(B, N)
+    got = tla.attention_jvp_stats(x, dx, w[1], w[2], dw[1], dw[2], chunk)
+    torch.cuda.synchronize()
+    want = tla.attention_jvp_stats_plain(x, dx, w[1], w[2], dw[1], dw[2],
+                                         chunk)
+    # f32 statistics, sums over up to 1720 rows in other orders: each
+    # within 1e-4 of its largest value
+    for g, wt in zip(tla.merge_jvp_stats(*got), tla.merge_jvp_stats(*want)):
+        assert float((g - wt).abs().max()) <= 1e-4 * float(wt.abs().max())
+    a, da = t((B, H, C), 0.1), t((B, H, C), 0.1)
+    bias, dbias = t((C,), 0.1, torch.float32), t((C,), 0.1, torch.float32)
+    got = tla.attention_jvp_apply(x, dx, w[0], dw[0], a, da, bias, dbias)
+    torch.cuda.synchronize()
+    want = tla.attention_jvp_apply_plain(x, dx, w[0], dw[0], a, da, bias,
+                                         dbias)
+    tol = 1e-4 if dtype == torch.float32 else 2 ** -6
+    for g, wt in zip(got, want):
+        torch.testing.assert_close(g.float(), wt.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_unet_jvp_on_gpu_matches_plain_on_cpu(cuda):
+    # torch.func.jvp through the U-Net: K1, K2, K3 for the primal, K6 and K7
+    # for the attention's tangent on the GPU; the plain versions on the CPU.
+    # f32 with TF32 off; cuDNN and oneDNN sum convolutions in other orders
+    from gradtts_tpu_torch.models.tts import GradTTS
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.manual_seed(0)
+    model = GradTTS(n_vocab=40, n_enc_channels=32, filter_channels=64,
+                    filter_channels_dp=16, n_heads=2, n_enc_layers=1,
+                    n_feats=80, dec_dim=16).eval()
+    for m in model.modules():                # non-zero gains: attention runs
+        if hasattr(m, 'g'):
+            m.g.data.fill_(0.5)
+    rng = np.random.default_rng(5)
+    xt, mu, eps = (torch.tensor(rng.standard_normal((2, 64, 80)),
+                                dtype=torch.float32) for _ in range(3))
+    mask = (torch.arange(64)[None] < torch.tensor([[64], [40]])).float()
+    t = torch.tensor([0.3, 0.8])
+    outs = []
+    launches = tla.attention_jvp_stats.launches
+    for dev in (cuda, torch.device('cpu')):
+        m = model.to(dev)
+        with torch.no_grad():
+            outs.append([o.cpu() for o in torch.func.jvp(
+                lambda a: m.estimate(a, mask.to(dev), mu.to(dev), t.to(dev)),
+                (xt.to(dev),), (eps.to(dev),))])
+    assert tla.attention_jvp_stats.launches == launches + 6
+    for g, wt in zip(*outs):
+        assert float((g - wt).abs().max()) <= 1e-3 * float(wt.abs().max())

@@ -1,6 +1,7 @@
 """Package rules of gradtts_tpu_torch: it imports neither JAX nor the JAX
-package, its entry points never fall back to the CPU, it refuses the
-presets it does not port yet, and its CPU path launches no kernel."""
+package, its entry points (synthesis, n-best scoring) never fall back to
+the CPU, it refuses the presets it does not port yet, and its CPU paths
+launch no kernel."""
 
 import os
 import subprocess
@@ -11,8 +12,10 @@ import torch
 
 from _torch_port import TINY, N_VOCAB
 from gradtts_tpu_torch.cli.inference import main as inference_main
+from gradtts_tpu_torch.cli.nbest import main as nbest_main
 from gradtts_tpu_torch.config import get_config
 from gradtts_tpu_torch.models.tts import GradTTS, compute_loss, synthesize
+from gradtts_tpu_torch.nbest.scoring import score_batch
 from gradtts_tpu_torch.ops import groupnorm_mish as tgn
 from gradtts_tpu_torch.ops import linear_attention as tla
 from gradtts_tpu_torch.ops import mas as tmas
@@ -29,7 +32,11 @@ for name in names:
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'gradtts_tpu'))
 print(len(names), 'modules;', 'forbidden:', bad)
-assert len(names) >= 15 and not bad
+assert not bad
+for needed in ('likelihood.ode', 'likelihood.sde', 'nbest.scoring',
+               'nbest.sweep', 'cli.nbest'):
+    assert 'gradtts_tpu_torch.' + needed in names, needed
+assert len(names) >= 39
 """
 
 
@@ -50,8 +57,18 @@ def test_entry_point_without_gpu_raises(monkeypatch, tmp_path):
                         '-o', str(tmp_path / 'o')])
 
 
+def test_nbest_score_without_gpu_raises(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        nbest_main(['score', '--n-best', 'unused.pkl', '--checkpoint',
+                    'unused.pt', '--filelist', 'unused.txt', '--out-dir',
+                    str(tmp_path / 'o'), '--preset', 'ljspeech'])
+
+
+# tedlium-spk is the default preset of cli.nbest score, as in the JAX CLI
 @pytest.mark.parametrize('preset,overrides', [
-    ('libri-tts', {}), ('tedlium', {}), ('ljspeech', {'encoder_speaker': True})])
+    ('libri-tts', {}), ('tedlium', {}), ('ljspeech', {'encoder_speaker': True}),
+    ('tedlium-spk', {})])
 def test_speaker_presets_are_refused(preset, overrides):
     with pytest.raises(NotImplementedError, match='single-speaker'):
         GradTTS.from_config(get_config(preset, **overrides))
@@ -65,6 +82,7 @@ def test_cpu_path_launches_no_kernel():
             m.g.data.fill_(0.5)
     counters = (tgn.groupnorm_mish, tla.attention_stats, tla.attention_apply,
                 tla.attention_bwd_sweep1, tla.attention_bwd_sweep2,
+                tla.attention_jvp_stats, tla.attention_jvp_apply,
                 tmas.maximum_path)
     before = [c.launches for c in counters]
     res = synthesize(model, torch.randint(1, N_VOCAB, (1, 8)),
@@ -75,4 +93,10 @@ def test_cpu_path_launches_no_kernel():
                         torch.tensor([8, 5]), torch.randn(2, 32, 80),
                         torch.tensor([32, 20]))
     (loss.dur_loss + loss.prior_loss + loss.diff_loss).backward()
+    # and a likelihood score (MAS, the forward-mode rules: K6, K7)
+    res = score_batch(model, torch.randint(1, N_VOCAB, (2, 8)),
+                      torch.tensor([8, 5]), torch.randn(2, 32, 80),
+                      torch.tensor([32, 20]), n_euler=2,
+                      generator=torch.Generator().manual_seed(0))
+    assert torch.isfinite(res.score).all()
     assert [c.launches for c in counters] == before
