@@ -6,7 +6,10 @@ Run from the root of a checkout, with no arguments:
 
 Phases, each printing one JSON line:
   1. build    the hand-written kernels from gradtts_tpu_torch/csrc (one nvcc
-              per source, all at once) and report nvcc's register report;
+              per source, all at once), report nvcc's register report and
+              count the tensor-core instructions (HMMA, HGMMA) of each
+              entry function in the built SASS (cuobjdump), requiring some
+              in every bf16 K2 and K3 entry;
   2. kernels  hold every kernel against its plain PyTorch version at each
               shape its path gives it, in f32 and bf16, and time kernel and
               plain version in bf16: K1-K3 at the synthesis shapes (B 8,
@@ -149,8 +152,40 @@ def bound(nbytes, flops, dtype_name):
 # ---- phase 1 ---------------------------------------------------------------
 
 
+def _entry_name(mangled):
+    """_ZN..gn_stats_kernelI13__nv_bfloat16Li64E.. -> gn_stats<bf16,64>,
+    ..la_jvp_stats_kernelIfLi64ELb1E.. -> la_jvp_stats<f32,64,dW>."""
+    m = re.search(r'((?:gn|la)_[a-z0-9_]+?)_kernelI'
+                  r'(f|13__nv_bfloat16)Li(\d+)E(?:Lb([01])E)?', mangled)
+    if m:
+        return (f"{m[1]}<{'f32' if m[2] == 'f' else 'bf16'},{m[3]}"
+                f"{',dW' if m[4] == '1' else ''}>")
+    plain = re.search(r'(mas)_kernel', mangled)
+    return plain[1] if plain else mangled
+
+
+def _tensor_core_counts(library):
+    """{entry function: HMMA + HGMMA instructions} of a built library's
+    SASS, by the cuobjdump of the toolkit that built it."""
+    from gradtts_tpu_torch.ops import _build
+    tool = os.path.join(os.path.dirname(_build._nvcc()), 'cuobjdump')
+    proc = subprocess.run([tool, '-sass', _build.library_path(library)],
+                          capture_output=True, text=True, timeout=300)
+    require(proc.returncode == 0, f'cuobjdump -sass {library} exited '
+                                  f'{proc.returncode}: {proc.stderr[-2000:]}')
+    counts, fn = {}, None
+    for ln in proc.stdout.splitlines():
+        if 'Function :' in ln:
+            fn = _entry_name(ln.split('Function :')[1].strip())
+            counts[fn] = 0
+        elif fn and re.search(r'\bHG?MMA\.', ln):
+            counts[fn] += 1
+    return counts
+
+
 def phase_build():
     from gradtts_tpu_torch.ops import _build
+    from gradtts_tpu_torch.ops import linear_attention as la
     t0 = time.perf_counter()
     report = _build.build()
     ptxas = {}     # entry function -> 'R registers, S bytes spill stores'
@@ -158,22 +193,23 @@ def phase_build():
         fn = None
         for ln in r['log'].splitlines():
             if 'Compiling entry function' in ln:
-                # _ZN..gn_stats_kernelI13__nv_bfloat16Li64E.. -> gn_stats<bf16,64>
-                # and ..la_jvp_stats_kernelIfLi64ELb1E.. -> la_jvp_stats<f32,64,dW>
-                m = re.search(r'((?:gn|la)_[a-z0-9_]+?)_kernelI'
-                              r'(f|13__nv_bfloat16)Li(\d+)E(?:Lb([01])E)?', ln)
-                plain = re.search(r'(mas)_kernel', ln)
-                fn = (f"{m[1]}<{'f32' if m[2] == 'f' else 'bf16'},{m[3]}"
-                      f"{',dW' if m[4] == '1' else ''}>") \
-                    if m else plain[1] if plain else ln.split("'")[1]
+                fn = _entry_name(ln.split("'")[1])
             elif fn and 'spill stores' in ln:
                 spill = ln.split(',')[1].strip()
             elif fn and 'Used' in ln and 'registers' in ln:
                 ptxas[fn] = f"{ln.split('Used')[1].split(',')[0].strip()}, " \
                             f'{spill}'
+    mma = _tensor_core_counts('linear_attention')
     emit({'phase': 'build', 'seconds': time.perf_counter() - t0,
           'per_source_seconds': {n: r['seconds'] for n, r in report.items()},
-          'flags': ' '.join(_build.NVCC_FLAGS), 'ptxas': ptxas})
+          'flags': ' '.join(_build.NVCC_FLAGS), 'ptxas': ptxas,
+          'tensor_core_instructions': mma})
+    # K2 and K3 run their bf16 products on the tensor cores
+    for kernel in ('la_stats', 'la_apply'):
+        for c in la._CHANNELS:
+            fn = f'{kernel}<bf16,{c}>'
+            require(mma.get(fn, 0) > 0, f'build: {fn} has no HMMA or HGMMA '
+                                        f'instruction ({mma.get(fn)})')
 
 
 # ---- phase 2 ---------------------------------------------------------------
@@ -207,6 +243,11 @@ def _timed(st, mult, fn, plain, nbytes, flops, peak, line):
                 per_call=mult)
 
 
+def _per_den(blocks, den):
+    """Head blocks [..., heads, dh, dh] over den [..., H] of their rows."""
+    return blocks / den.reshape(blocks.shape[:-1])[..., None]
+
+
 def _jvp_stats_pairs(got, want):
     """K6's outputs, merged: m per split and ctx / den elementwise (as K2's);
     the tangents dctx / den and dden / den against their largest value."""
@@ -214,8 +255,7 @@ def _jvp_stats_pairs(got, want):
 
     def normed(out):
         ctx, den, dctx, dden = la.merge_jvp_stats(*out)
-        den_rows = den.reshape(ctx.shape[:-1])[..., None]
-        return ctx / den_rows, dctx / den_rows, dden / den
+        return _per_den(ctx, den), _per_den(dctx, den), dden / den
 
     (c_k, dc_k, dd_k), (c_p, dc_p, dd_p) = normed(got), normed(want)
     return [(got[0], want[0], False), (c_k, c_p, False), (dc_k, dc_p, True),
@@ -263,11 +303,11 @@ def phase_kernels(device):
                 w_out, b_out = rand((H, C), 1 / math.sqrt(H)), rand((C,), 0.1)
                 g = torch.tensor([0.7], device=device)
                 xr = x.view(bsz, N, C)
-                chunk = la.split_chunk(bsz, N)
+                chunk = la.split_chunk(bsz, N)           # K6, K7
+                chunk2 = la.split_chunk(bsz, N, la._TC_ROWS)   # K2, K3
                 m_p, ctx_p, den_p = la.merge_stats(
-                    *la.attention_stats_plain(xr, wk, wv, chunk))
-                ctx2, bias = la.fold_context(ctx_p, den_p, w_out, b_out, g,
-                                             32)
+                    *la.attention_stats_plain(xr, wk, wv, chunk2))
+                ctx2, bias = la.fold_context(ctx_p, den_p, w_out, b_out, g)
                 ctx2 = ctx2.to(dtype)
                 fns = {
                     'groupnorm_mish': (
@@ -275,8 +315,9 @@ def phase_kernels(device):
                         lambda: gn.groupnorm_mish_plain(x, mask, gamma,
                                                         beta)),
                     'attention_stats': (
-                        lambda: la.attention_stats(xr, wk, wv, chunk),
-                        lambda: la.attention_stats_plain(xr, wk, wv, chunk)),
+                        lambda: la.attention_stats(xr, wk, wv, chunk2),
+                        lambda: la.attention_stats_plain(xr, wk, wv,
+                                                         chunk2)),
                     'attention_apply': (
                         lambda: la.attention_apply(xr, wq, ctx2, bias),
                         lambda: la.attention_apply_plain(xr, wq, ctx2,
@@ -289,7 +330,7 @@ def phase_kernels(device):
                                        'float32'),
                     'attention_stats': (n_attn, elems * size
                                         + 2 * C * H * size
-                                        + bsz * (H * H + 2 * H) * 4,
+                                        + bsz * (H * 32 + 2 * H) * 4,
                                         bsz * N * (4 * C * H + 2 * H * 32
                                                    + 2 * H), dn),
                     'attention_apply': (n_attn, 2 * elems * size
@@ -299,10 +340,12 @@ def phase_kernels(device):
                 }
 
                 def stats_pairs(out):
+                    # K2 writes only the head-diagonal blocks
+                    require(tuple(out[1].shape[2:]) == (H // 32, 32, 32),
+                            f'attention_stats: ctx {tuple(out[1].shape)}')
                     m_k, ctx_k, den_k = la.merge_stats(*out)
-                    return [(ctx_k / den_k[..., None],
-                             ctx_p / den_p[..., None], False), (m_k, m_p,
-                                                                False)]
+                    return [(_per_den(ctx_k, den_k), _per_den(ctx_p, den_p),
+                             False), (m_k, m_p, False)]
 
                 pairs = {
                     'groupnorm_mish': lambda got, want: [(got, want, False)],
@@ -311,8 +354,8 @@ def phase_kernels(device):
                 }
                 if path == 'train':
                     dy = rand((bsz, N, C), 1.0, dtype)
-                    a_pre = ((ctx_p * la.head_blockdiag(H, 32, device))
-                             / den_p[:, :, None]) @ w_out
+                    a_pre = la.fold_context(ctx_p, den_p, w_out, b_out,
+                                            torch.ones(1, device=device))[0]
                     a_full_t = (a_pre * 0.7).transpose(1, 2).to(dtype) \
                         .contiguous()
                     a_pre = a_pre.to(dtype).contiguous()

@@ -52,6 +52,88 @@ __device__ __forceinline__ void load_rows_f32(const T* __restrict__ x, int row0,
   }
 }
 
+// ---- tensor-core building blocks (sm_80+ PTX: cp.async, ldmatrix, mma.sync)
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronous; src_bytes 0 fills the 16 bytes
+// with zeros (src must still be a valid address).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int PENDING>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING));
+}
+
+// Four 8x8 b16 matrices; lane l gives the address of row l % 8 of matrix
+// l / 8. Without .trans lane t gets (row t/4, cols 2(t%4), +1) of each
+// matrix; with .trans (rows 2(t%4), +1, col t/4).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// d += a b for one 16x8x16 bf16 tile, f32 accumulators. Fragments, lane t,
+// g = t / 4, q = t % 4: a {(g, 2q..), (g+8, 2q..), (g, 2q+8..), (g+8,
+// 2q+8..)} of A [16, 16]; b {(2q.., g), (2q+8.., g)} of B [16, 8]; d
+// {(g, 2q), (g, 2q+1), (g+8, 2q), (g+8, 2q+1)} of D [16, 8].
+__device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                               uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two f32 rounded to nearest even into one bf16x2 register (lo = first).
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// A row-major [rows, W] bf16 tile in shared memory, addressed in 16-byte
+// chunks (8 values). Rows of 8 or more chunks are XOR-swizzled (chunk c of
+// row r at c ^ (r % 8)), shorter rows padded by one chunk: either way the 8
+// rows an ldmatrix reads at one column fall in 8 distinct bank groups.
+template <int W>
+struct RowTile {
+  static constexpr int CH = W / 8;
+  static constexpr bool SWIZZLE = CH >= 8;
+  static constexpr int STRIDE = SWIZZLE ? CH : CH + 1;  // chunks per row
+  __host__ __device__ static constexpr int bytes(int rows) { return rows * STRIDE * 16; }
+  __device__ static __forceinline__ int chunk(int row, int c) {
+    return row * STRIDE + (SWIZZLE ? (c ^ (row & 7)) : c);
+  }
+  __device__ static __forceinline__ unsigned char* at(unsigned char* tile, int row, int c) {
+    return tile + chunk(row, c) * 16;
+  }
+};
+
+// rows [0, rows) of a row-major [*, W] bf16 matrix into a RowTile<W> with
+// cp.async, all threads of the block taking part; rows >= valid are zeros.
+template <int W>
+__device__ __forceinline__ void load_tile_async(const __nv_bfloat16* __restrict__ src, int rows,
+                                                int valid, unsigned char* tile) {
+  constexpr int CH = W / 8;
+  for (int i = threadIdx.x; i < rows * CH; i += blockDim.x) {
+    const int r = i / CH, c = i % CH;
+    const bool ok = r < valid;
+    cp_async16(RowTile<W>::at(tile, r, c), src + (size_t)(ok ? r : 0) * W + c * 8, ok ? 16 : 0);
+  }
+}
+
 }  // namespace gtt
 
 // The channel counts of the U-Net's attentions: dispatches a launcher

@@ -15,11 +15,13 @@ what bounds them on the H100 and how they are laid out.
 For x [B, N = F*T, C] and H = heads * dim_head:
 
   K2 ``attention_stats``: per batch item and per split of the N rows,
-     k = x Wk, v = x Wv and, under a running max m over the rows, the f32
-     context sum exp(k - m) v^T [H, H] and denominator sum exp(k - m) [H];
+     k = x Wk, v = x Wv and, under a running max m over the rows, the
+     head-diagonal blocks of the f32 context sum exp(k - m) v^T
+     [heads, dh, dh] (the fold reads no other entry) and the denominator
+     sum exp(k - m) [H];
   ``merge_stats``: merges the splits with the same exp(m_s - m) rescale;
-  ``fold_context``: head block-diagonal mask, / den, @ Wout, * g -> ctx2
-     [B, H, C], and bias = b_out * g (as ``_forward`` :195-200);
+  ``fold_context``: / den, @ Wout per head, * g -> ctx2 [B, H, C], and
+     bias = b_out * g (as ``_forward`` :195-200);
   K3 ``attention_apply``: out = x + (x Wq rounded to x's dtype) ctx2 + bias;
   K4 ``attention_bwd_sweep1``: dA = q^T dy per batch item, and over the
      batch dWq = x^T (dy A_full^T), db = sum dy, dgv = sum dy (q A_pre + b);
@@ -48,16 +50,18 @@ from gradtts_tpu_torch.ops import _build
 HIDDEN = 128               # heads * dim_head the CUDA kernels are built for
 DIM_HEAD = 32              # dim_head K5 is built for (csrc: DH)
 _ROWS = 32                 # csrc/linear_attention*.cu: rows per tile R
+_TC_ROWS = 64              # csrc/linear_attention.cu: bf16 rows per tile TR
 _TARGET_BLOCKS = 2 * 132   # two blocks per SM of an H100
 _CHANNELS = (16, 32, 64, 128, 256)
 _NEG = -1e30               # running-max start value (Pallas _NEG)
 
 
-def split_chunk(B: int, N: int) -> int:
-    """Rows per split of K2/K3: enough splits to fill the card at batch B,
-    each a whole number of the kernels' row tiles."""
-    n_splits = max(1, min(-(-_TARGET_BLOCKS // B), -(-N // _ROWS)))
-    return -(-N // (n_splits * _ROWS)) * _ROWS
+def split_chunk(B: int, N: int, rows: int = _ROWS) -> int:
+    """Rows per split of a forward kernel: enough splits to fill the card
+    at batch B, each a whole number of the kernel's row tiles of ``rows``
+    (K2 and K3: :data:`_TC_ROWS`; K6 and K7: :data:`_ROWS`)."""
+    n_splits = max(1, min(-(-_TARGET_BLOCKS // B), -(-N // rows)))
+    return -(-N // (n_splits * rows)) * rows
 
 
 def bwd_roles(kernel: str, C: int) -> int:
@@ -87,10 +91,21 @@ def head_blockdiag(H: int, dim_head: int, device) -> torch.Tensor:
 # ---- plain PyTorch versions ----------------------------------------------
 
 
-def attention_stats_plain(x, w_k, w_v, chunk: int):
+def _head_blocks(a, b, dim_head):
+    """sum over rows of a^T b, head-diagonal blocks only: a, b [..., n, H]
+    -> [..., H / dim_head, dim_head, dim_head]."""
+    a = a.reshape(*a.shape[:-1], -1, dim_head)
+    b = b.reshape(*b.shape[:-1], -1, dim_head)
+    return torch.einsum('...nhd,...nhe->...hde', a, b)
+
+
+def attention_stats_plain(x, w_k, w_v, chunk: int,
+                          dim_head: int = DIM_HEAD):
     """x [B, N, C]; w_k, w_v [C, H]. Returns f32 (m [B, S, H],
-    ctx [B, S, H, H], den [B, S, H]) for the S = ceil(N / chunk) splits of
-    rows [s * chunk, (s + 1) * chunk)."""
+    ctx [B, S, H / dim_head, dim_head, dim_head], den [B, S, H]) for the
+    S = ceil(N / chunk) splits of rows [s * chunk, (s + 1) * chunk): ctx
+    holds the head-diagonal blocks of sum exp(k - m) v^T, the only
+    entries the fold reads."""
     ms, ctxs, dens = [], [], []
     for xs in torch.split(x, chunk, dim=1):
         xs = xs.float()
@@ -99,7 +114,7 @@ def attention_stats_plain(x, w_k, w_v, chunk: int):
         m = k.amax(dim=1)                                   # [B, H]
         ek = torch.exp(k - m[:, None, :])
         ms.append(m)
-        ctxs.append(ek.transpose(1, 2) @ v)                 # [B, H, H]
+        ctxs.append(_head_blocks(ek, v, dim_head))
         dens.append(ek.sum(dim=1))
     return torch.stack(ms, 1), torch.stack(ctxs, 1), torch.stack(dens, 1)
 
@@ -148,14 +163,6 @@ def attention_bwd_sweep2_plain(x, dy, w_q, w_k, w_v, m, a_full_t, dctx,
           + dv @ w_v.float().t())
     xt = xf.transpose(1, 2)
     return dx.to(dt), (xt @ dk).sum(dim=0), (xt @ dv).sum(dim=0)
-
-
-def _head_blocks(a, b, dim_head):
-    """sum over rows of a^T b, head-diagonal blocks only: a, b [..., n, H]
-    -> [..., H / dim_head, dim_head, dim_head]."""
-    a = a.reshape(*a.shape[:-1], -1, dim_head)
-    b = b.reshape(*b.shape[:-1], -1, dim_head)
-    return torch.einsum('...nhd,...nhe->...hde', a, b)
 
 
 def attention_jvp_stats_plain(x, dx, w_k, w_v, dw_k, dw_v, chunk: int,
@@ -230,18 +237,26 @@ def _check(name, x, tensors, dtypes):
                              '16-byte aligned')
 
 
-def attention_stats(x, w_k, w_v, chunk: int):
+def _check_dim_head(name, dim_head):
+    if dim_head != DIM_HEAD:
+        raise ValueError(f'{name}: the kernel is built for dim_head '
+                         f'{DIM_HEAD}, got {dim_head}')
+
+
+def attention_stats(x, w_k, w_v, chunk: int, dim_head: int = DIM_HEAD):
     """K2. Same contract as :func:`attention_stats_plain`; CPU tensors take
-    the plain version, CUDA tensors launch the kernel or raise."""
+    the plain version, CUDA tensors launch the kernel (built for
+    ``dim_head`` 32) or raise."""
     if x.device.type == 'cpu':
-        return attention_stats_plain(x, w_k, w_v, chunk)
+        return attention_stats_plain(x, w_k, w_v, chunk, dim_head)
+    _check_dim_head('attention_stats', dim_head)
     B, N, C = x.shape
     _check('attention_stats', x, {'w_k': w_k, 'w_v': w_v},
            [((C, HIDDEN), x.dtype)] * 2)
     S = -(-N // chunk)
     f32 = dict(dtype=torch.float32, device=x.device)
     m = torch.empty((B, S, HIDDEN), **f32)
-    ctx = torch.empty((B, S, HIDDEN, HIDDEN), **f32)
+    ctx = torch.empty((B, S, HIDDEN // DIM_HEAD, DIM_HEAD, DIM_HEAD), **f32)
     den = torch.empty((B, S, HIDDEN), **f32)
     lib = _build.load('linear_attention')
     _build.check(lib, lib.gtt_la_stats(
@@ -264,7 +279,7 @@ def attention_apply(x, w_q, ctx2, bias):
     _check('attention_apply', x, {'w_q': w_q, 'ctx2': ctx2, 'bias': bias},
            [((C, HIDDEN), x.dtype), ((B, HIDDEN, C), x.dtype),
             ((C,), torch.float32)])
-    chunk = split_chunk(B, N)
+    chunk = split_chunk(B, N, _TC_ROWS)
     out = torch.empty_like(x)
     lib = _build.load('linear_attention')
     _build.check(lib, lib.gtt_la_apply(
@@ -321,9 +336,7 @@ def attention_bwd_sweep2(x, dy, w_q, w_k, w_v, m, a_full_t, dctx, dden,
     if x.device.type == 'cpu':
         return attention_bwd_sweep2_plain(x, dy, w_q, w_k, w_v, m, a_full_t,
                                           dctx, dden, dim_head)
-    if dim_head != DIM_HEAD:
-        raise ValueError(f'attention_bwd_sweep2: the kernel is built for '
-                         f'dim_head {DIM_HEAD}, got {dim_head}')
+    _check_dim_head('attention_bwd_sweep2', dim_head)
     B, N, C = x.shape
     H = HIDDEN
     f32 = torch.float32
@@ -363,9 +376,7 @@ def attention_jvp_stats(x, dx, w_k, w_v, dw_k, dw_v, chunk: int,
     if x.device.type == 'cpu':
         return attention_jvp_stats_plain(x, dx, w_k, w_v, dw_k, dw_v, chunk,
                                          dim_head)
-    if dim_head != DIM_HEAD:
-        raise ValueError(f'attention_jvp_stats: the kernel is built for '
-                         f'dim_head {DIM_HEAD}, got {dim_head}')
+    _check_dim_head('attention_jvp_stats', dim_head)
     if (dw_k is None) != (dw_v is None):
         raise ValueError('attention_jvp_stats: dw_k and dw_v are given '
                          'together or not at all')
@@ -434,37 +445,78 @@ attention_jvp_apply.launches = 0
 # ---- merge, fold and the whole op ------------------------------------------
 
 
-def merge_stats(m, ctx, den):
-    """Merges per-split statistics [B, S, ...] into (m [B, H],
-    ctx [B, H, H], den [B, H]) with the online-max rescale exp(m_s - m)."""
+def _check_blocks(name, ctx, rows):
+    """ctx [..., heads, dh, dh] head blocks that tile the H of ``rows``
+    [..., H]."""
+    if (ctx.dim() != rows.dim() + 2 or ctx.shape[-1] != ctx.shape[-2]
+            or ctx.shape[:-3] != rows.shape[:-1]
+            or ctx.shape[-3] * ctx.shape[-1] != rows.shape[-1]):
+        raise ValueError(f'{name}: ctx must be head blocks [..., heads, dh, '
+                         f'dh] with heads * dh = {rows.shape[-1]}, got '
+                         f'{tuple(ctx.shape)}')
+
+
+def _merge_splits(m, blocks, rows):
+    """Sums per-split statistics over the split axis 1 with the online-max
+    rescale exp(m_s - m): ``blocks`` [B, S, heads, dh, dh] by the rescale
+    of their row, ``rows`` [B, S, H] by their own. Returns (m [B, H],
+    blocks, rows), each without the split axis."""
     m_all = m.amax(dim=1)                                    # [B, H]
     alpha = torch.exp(m - m_all[:, None, :])                 # [B, S, H]
-    return (m_all, (ctx * alpha[..., None]).sum(dim=1),
-            (den * alpha).sum(dim=1))
+    a_rows = alpha.reshape(blocks[0].shape[:-1])[..., None]  # per block row
+    return (m_all, [(c * a_rows).sum(dim=1) for c in blocks],
+            [(r * alpha).sum(dim=1) for r in rows])
 
 
-def fold_context(ctx, den, w_out, b_out, g, dim_head: int):
-    """(ctx [B, H, H], den [B, H]) -> (ctx2 [B, H, C], bias [C]) in f32:
-    head block-diagonal mask, / den, @ Wout, * g (``_forward`` :195-200)."""
+def merge_stats(m, ctx, den):
+    """Merges K2's per-split statistics (m, den [B, S, H]; ctx [B, S,
+    heads, dh, dh] head blocks) into (m [B, H], ctx [B, heads, dh, dh],
+    den [B, H]) with the online-max rescale exp(m_s - m)."""
+    _check_blocks('merge_stats', ctx, m)
+    m_all, (ctx,), (den,) = _merge_splits(m, [ctx], [den])
+    return m_all, ctx, den
+
+
+def _per_head(ctx, w):
+    """Head blocks ctx [B, heads, dh, dh] @ the matching rows of w [H, C]
+    -> [B, H, C]: the block-diagonal context times w."""
+    B, nh, dh, _ = ctx.shape
+    return torch.einsum('bhde,hec->bhdc', ctx,
+                        w.float().reshape(nh, dh, -1)).reshape(B, nh * dh, -1)
+
+
+def fold_context(ctx, den, w_out, b_out, g):
+    """(ctx [B, heads, dh, dh] head blocks, den [B, H]) -> (ctx2 [B, H, C],
+    bias [C]) in f32: / den, @ Wout, * g (``_forward`` :195-200; its head
+    block-diagonal mask is the block form here)."""
+    _check_blocks('fold_context', ctx, den)
     g = g.float().reshape(())
-    ctx2 = (ctx * head_blockdiag(ctx.shape[-1], dim_head, ctx.device)) \
-        / den[:, :, None]
-    ctx2 = (ctx2 @ w_out.float()) * g
-    return ctx2, b_out.float() * g
+    ctx2n = ctx / den.reshape(ctx.shape[:-1])[..., None]
+    return _per_head(ctx2n, w_out) * g, b_out.float() * g
+
+
+def _full_context(ctx):
+    """Head blocks [B, heads, dh, dh] -> the block-diagonal [B, H, H]."""
+    B, nh, dh, _ = ctx.shape
+    full = ctx.new_zeros(B, nh, dh, nh, dh)
+    full.diagonal(dim1=1, dim2=3).copy_(ctx.permute(0, 2, 3, 1))
+    return full.reshape(B, nh * dh, nh * dh)
 
 
 def _forward(x, w_q, w_k, w_v, w_out, b_out, g, dim_head, chunk, ops):
     """K2 -> merge -> fold -> K3 (or their plain versions, ``ops``).
-    Returns (out [B, F, T, C], m, ctx, den), the last three merged."""
+    Returns (out [B, F, T, C], m, ctx, den), the last three merged (ctx in
+    head blocks)."""
     stats, apply = ops[:2]
     B, F, T, C = x.shape
     xr = x.reshape(B, F * T, C)
     dt = x.dtype
     if chunk is None:
-        chunk = split_chunk(B, F * T)
+        chunk = split_chunk(B, F * T, _TC_ROWS)
     m, cx, den = merge_stats(*stats(xr, w_k.to(dt).contiguous(),
-                                    w_v.to(dt).contiguous(), chunk))
-    ctx2, bias = fold_context(cx, den, w_out, b_out, g, dim_head)
+                                    w_v.to(dt).contiguous(), chunk,
+                                    dim_head))
+    ctx2, bias = fold_context(cx, den, w_out, b_out, g)
     out = apply(xr, w_q.to(dt).contiguous(), ctx2.to(dt), bias)
     return out.reshape(B, F, T, C), m, cx, den
 
@@ -475,11 +527,8 @@ def merge_jvp_stats(m, ctx, den, dctx, dden):
     :func:`merge_stats`; m is stop-gradient, so the rescale has no tangent
     and scales the tangents alike. ctx and dctx are [B, S, heads, dh, dh]
     head blocks, rescaled by their row's max."""
-    m_all = m.amax(dim=1)                                    # [B, H]
-    alpha = torch.exp(m - m_all[:, None, :])                 # [B, S, H]
-    a_rows = alpha.reshape(ctx.shape[:-1])[..., None]        # per block row
-    return ((ctx * a_rows).sum(dim=1), (den * alpha).sum(dim=1),
-            (dctx * a_rows).sum(dim=1), (dden * alpha).sum(dim=1))
+    _, (ctx, dctx), (den, dden) = _merge_splits(m, [ctx, dctx], [den, dden])
+    return ctx, den, dctx, dden
 
 
 def fold_context_jvp(ctx, den, dctx, dden, w_out, b_out, g, dw_out, db_out,
@@ -491,20 +540,14 @@ def fold_context_jvp(ctx, den, dctx, dden, w_out, b_out, g, dw_out, db_out,
     A = ctx2n Wout g, dA = (dctx2n Wout + ctx2n dWout) g + ctx2n Wout dg
     where dctx2n = dctx / den - ctx2n dden / den (``_jvp_pallas``
     :800-817)."""
-    B, nh, dh, _ = ctx.shape
     g = g.float().reshape(())
-    den_h = den.reshape(B, nh, dh, 1)
+    den_h = den.reshape(ctx.shape[:-1])[..., None]
     ctx2n = ctx / den_h
-    dctx2n = dctx / den_h - ctx2n * (dden.reshape(B, nh, dh, 1) / den_h)
-    w_h = w_out.float().reshape(nh, dh, -1)                  # [heads, dh, C]
-
-    def project(c, w):
-        return torch.einsum('bhde,hec->bhdc', c, w).reshape(B, nh * dh, -1)
-
-    a_pre = project(ctx2n, w_h)
-    da_pre = project(dctx2n, w_h)
+    dctx2n = dctx / den_h - ctx2n * (dden.reshape(den_h.shape) / den_h)
+    a_pre = _per_head(ctx2n, w_out)
+    da_pre = _per_head(dctx2n, w_out)
     if dw_out is not None:
-        da_pre = da_pre + project(ctx2n, dw_out.float().reshape(nh, dh, -1))
+        da_pre = da_pre + _per_head(ctx2n, dw_out)
     b32 = b_out.float()
     da = da_pre * g
     dbias = torch.zeros_like(b32) if db_out is None else db_out.float() * g
@@ -592,7 +635,8 @@ class LinearAttentionRezeroFn(torch.autograd.Function):
         dyr = dy.to(dt).contiguous().reshape(B, F * T, C)
         g32 = g.float().reshape(())
         bd = head_blockdiag(w_q.shape[1], ctx.dim_head, x.device)
-        ctx2n = cx * bd / den[:, :, None]                    # [B, H, H]
+        cx = _full_context(cx)                               # [B, H, H]
+        ctx2n = cx / den[:, :, None]
         w_out32 = w_out.float()
         a_pre = ctx2n @ w_out32                              # [B, H, C]
         a_full_t = (a_pre * g32).transpose(1, 2).to(dt).contiguous()
@@ -604,7 +648,7 @@ class LinearAttentionRezeroFn(torch.autograd.Function):
         dwout = torch.einsum('bde,bdc->ec', ctx2n, da) * g32
         dctx2n = torch.einsum('bdc,ec->bde', da, w_out32) * g32
         dctx = dctx2n * bd / den[:, :, None]
-        dden = -(dctx2n * cx * bd).sum(dim=2) / (den * den)
+        dden = -(dctx2n * cx).sum(dim=2) / (den * den)
         dxr, dwk, dwv = sweep2(xr, dyr, wq, wk, wv, m, a_full_t,
                                dctx.to(dt).contiguous(), dden, ctx.dim_head)
         return (dxr.reshape(B, F, T, C), dwq.to(w_q.dtype),
@@ -651,7 +695,8 @@ def linear_attention_rezero(x, w_q, w_k, w_v, w_out, b_out, g,
     b_out) * g + x in x's dtype, through K2 and K3; under autograd its
     grads through K4 and K5, under forward mode its tangent through K6 and
     K7 (their plain versions for CPU tensors). ``chunk`` is the rows per
-    split of K2 and K6 (default: :func:`split_chunk`)."""
+    split of K2 and K6 (default: :func:`split_chunk` at each kernel's row
+    tile)."""
     return _run(_KERNELS, (x, w_q, w_k, w_v, w_out, b_out, g), dim_head,
                 chunk)
 

@@ -60,6 +60,49 @@ def test_linear_attention_kernels_match_plain(cuda, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('C', tla._CHANNELS)
+def test_attention_stats_and_apply_kernels_match_plain(cuda, C, dtype):
+    # K2 and K3 alone at every channel count: ragged N (the training
+    # crops' 860 and 3440 rows, and 1001, odd), B 1 and 16, K2 over one
+    # split, over the wrapper's splits and over splits that end inside a
+    # 64-row tile; tolerances as in chip_smoke.py (TOL)
+    rng = np.random.default_rng(6)
+    H = tla.HIDDEN
+
+    def t(shape, scale=1.0, dt=dtype):
+        return torch.tensor(rng.standard_normal(shape) * scale,
+                            device=cuda).to(dt)
+
+    tol = 1e-4 if dtype == torch.float32 else 2 ** -6
+    for B in (1, 16):
+        for N in (860, 3440, 1001):
+            x = t((B, N, C), 2.0) + 0.5
+            wq, wk, wv = (t((C, H), 0.5 / C ** 0.5) for _ in range(3))
+            w_out = t((H, C), H ** -0.5, torch.float32)
+            b_out = t((C,), 0.1, torch.float32)
+            g = torch.tensor([0.7], device=cuda)
+            for chunk in (N, tla.split_chunk(B, N, tla._TC_ROWS), 100):
+                got = tla.attention_stats(x, wk, wv, chunk)
+                torch.cuda.synchronize()
+                want = tla.attention_stats_plain(x, wk, wv, chunk)
+                assert got[1].shape == (B, -(-N // chunk), 4, 32, 32)
+                (m_k, c_k, d_k), (m_p, c_p, d_p) = (
+                    tla.merge_stats(*o) for o in (got, want))
+                rows = c_k.shape[:-1]
+                for a, b in ((m_k, m_p), (c_k / d_k.reshape(rows)[..., None],
+                                          c_p / d_p.reshape(rows)[..., None])):
+                    assert bool(((a - b).abs() <= 1e-4 + 1e-4 * b.abs()).all())
+            ctx2, bias = tla.fold_context(c_p, d_p, w_out, b_out, g)
+            ctx2 = ctx2.to(dtype)
+            got = tla.attention_apply(x, wq, ctx2, bias)
+            torch.cuda.synchronize()
+            want = tla.attention_apply_plain(x, wq, ctx2, bias)
+            torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                       atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 def test_linear_attention_backward_kernels_match_plain(cuda, dtype):
     # K4 + K5 under autograd against the plain sweeps, at a ragged row count
     # (40 * 43 rows); f32 weights under a bf16 x, as in the U-Net

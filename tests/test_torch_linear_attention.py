@@ -26,6 +26,15 @@ def _chunk(n_rows, n_splits):
     return -(-n_rows // n_splits)
 
 
+def _diag_blocks(full, dim_head):
+    """[..., H, H] -> its head-diagonal blocks [..., H / dim_head,
+    dim_head, dim_head]."""
+    n = full.shape[-1] // dim_head
+    return np.stack([full[..., h * dim_head:(h + 1) * dim_head,
+                          h * dim_head:(h + 1) * dim_head]
+                     for h in range(n)], axis=-3)
+
+
 # f32 on both sides; sums over up to F*T rows in different orders (and, for
 # n_splits > 1, merged through exp(m_s - m)) differ by a few f32 ulps of the
 # largest terms: 1e-5 relative and absolute.
@@ -61,12 +70,15 @@ def test_merged_stats_match_pallas_interpret(monkeypatch, n_splits):
     xr = torch.from_numpy(x).reshape(2, 45, 32)
     tm, tctx, tden = tla.merge_stats(*tla.attention_stats_plain(
         xr, torch.from_numpy(w_k), torch.from_numpy(w_v),
-        _chunk(45, n_splits)))
+        _chunk(45, n_splits), dim_head=8))
     np.testing.assert_allclose(tm.numpy(), np.asarray(m)[:, 0], rtol=1e-6,
                                atol=1e-6)
     np.testing.assert_allclose(tden.numpy(), np.asarray(den)[:, 0],
                                **F32_TOL)
-    np.testing.assert_allclose(tctx.numpy(), np.asarray(ctx), **F32_TOL)
+    # the port keeps the head-diagonal blocks of the Pallas kernel's [H, H]
+    assert tctx.shape == (2, 4, 8, 8)
+    np.testing.assert_allclose(tctx.numpy(), _diag_blocks(np.asarray(ctx), 8),
+                               **F32_TOL)
     got = tla.linear_attention_rezero_plain(
         *map(torch.from_numpy, (x, w_q, w_k, w_v, w_out, b_out, g)),
         dim_head=8, chunk=_chunk(45, n_splits))
@@ -83,9 +95,9 @@ def test_per_head_block_diagonal():
     for wv in (w_v, w_v2):
         m, ctx, den = tla.merge_stats(*tla.attention_stats_plain(
             torch.from_numpy(x).reshape(1, 24, 16), torch.from_numpy(w_k),
-            torch.from_numpy(wv), 24))
+            torch.from_numpy(wv), 24, dim_head=8))
         ctxs.append(tla.fold_context(ctx, den, torch.eye(32), torch.zeros(32),
-                                     torch.ones(1), 8)[0][0])
+                                     torch.ones(1))[0][0])
     diff = (ctxs[0] - ctxs[1]).abs()
     assert diff[:8, :8].max() > 0
     assert diff[8:].max() == 0 and diff[:, 8:].max() == 0
@@ -146,6 +158,81 @@ def test_kernel_input_check(case, error):
     def check():
         tla._check('attention_stats', x, {'w_k': w, 'w_v': w},
                    [((C, tla.HIDDEN), x.dtype)] * 2)
+
+    if error is None:
+        check()
+    else:
+        with pytest.raises(error):
+            check()
+
+
+def _full_fold(x, w_k, w_v, w_out, b_out, g, chunk, dim_head):
+    """The fold as it was before K2 kept head blocks: full [H, H] context
+    per split, merged with exp(m_s - m), head block-diagonal mask, / den,
+    @ Wout, * g."""
+    ms, ctxs, dens = [], [], []
+    for xs in torch.split(x, chunk, dim=1):
+        k, v = xs @ w_k, xs @ w_v
+        m = k.amax(dim=1)
+        ek = torch.exp(k - m[:, None, :])
+        ms.append(m)
+        ctxs.append(ek.transpose(1, 2) @ v)
+        dens.append(ek.sum(dim=1))
+    m, ctx, den = torch.stack(ms, 1), torch.stack(ctxs, 1), torch.stack(dens,
+                                                                        1)
+    alpha = torch.exp(m - m.amax(dim=1)[:, None, :])
+    ctx = (ctx * alpha[..., None]).sum(dim=1)
+    den = (den * alpha).sum(dim=1)
+    bd = tla.head_blockdiag(ctx.shape[-1], dim_head, 'cpu')
+    ctx2 = ((ctx * bd) / den[:, :, None]) @ w_out * g
+    return ctx2, b_out * g
+
+
+@pytest.mark.parametrize('n_splits', [1, 3])
+@pytest.mark.parametrize('H,dim_head', [(32, 8), (128, 32)])
+def test_block_fold_matches_full_matrix_fold(H, dim_head, n_splits):
+    # merge_stats + fold_context on head blocks give the ctx2 and bias of
+    # the full-matrix fold on the same inputs; only f32 sums in other
+    # orders differ
+    x, w_q, w_k, w_v, w_out, b_out, g = map(
+        torch.from_numpy, _inputs(5, B=2, F=5, T=9, C=32, H=H))
+    xr = x.reshape(2, 45, 32)
+    chunk = _chunk(45, n_splits)
+    want = _full_fold(xr, w_k, w_v, w_out, b_out, g, chunk, dim_head)
+    got = tla.fold_context(
+        *tla.merge_stats(*tla.attention_stats_plain(xr, w_k, w_v, chunk,
+                                                    dim_head))[1:],
+        w_out, b_out, g)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize('case,error', [
+    ('ok', None), ('dim_head 16', ValueError), ('full [H, H] to fold',
+                                                ValueError),
+    ('full [H, H] to merge', ValueError), ('blocks do not tile H',
+                                           ValueError)])
+def test_block_contract_check(case, error):
+    # K2's kernel is built for dim_head 32; merge_stats and fold_context
+    # take head blocks [..., heads, dh, dh] that tile H, and refuse the old
+    # full [H, H] context
+    B, S, H = 2, 3, tla.HIDDEN
+    m, den = torch.zeros(B, S, H), torch.ones(B, S, H)
+    ctx = torch.zeros(B, S, H // 32, 32, 32)
+    w_out, b_out, g = torch.zeros(H, 16), torch.zeros(16), torch.ones(1)
+
+    def check():
+        tla._check_dim_head('attention_stats',
+                            16 if case == 'dim_head 16' else 32)
+        if case == 'full [H, H] to merge':
+            tla.merge_stats(m, torch.zeros(B, S, H, H), den)
+        mc = (m, ctx[:, :, :2] if case == 'blocks do not tile H' else ctx,
+              den)
+        _, c, d = tla.merge_stats(*mc)
+        if case == 'full [H, H] to fold':
+            c = torch.zeros(B, H, H)
+        ctx2, _ = tla.fold_context(c, d, w_out, b_out, g)
+        assert ctx2.shape == (B, H, 16)
 
     if error is None:
         check()

@@ -1,0 +1,102 @@
+"""Two checkouts of the PyTorch/CUDA port against each other on one GPU, in
+turns: synthesis audio-s/s and device-busy ms, the likelihood call's time
+and device-busy ms, and K2's and K3's device ms in each.
+
+    python3 tools/port_turns.py PARENT_DIR CHANGE_DIR [--order pccp]
+
+Each turn is a fresh process in one checkout that builds that checkout's
+kernels (its ``chip_smoke.phase_build``), then runs its
+``chip_smoke.phase_synth`` (bf16 synthesis, B 8 x 768 frames, 10 steps)
+and ``chip_smoke.phase_likelihood`` (bf16 ``score_batch``, B 8 x 512
+frames, 10 Euler steps) on the seeded ljspeech weights. ``--order`` names
+the checkouts in turn (p: parent, c: change; default parent, change,
+change, parent). Prints one JSON line per turn and a summary last. Needs a
+GPU; the checkouts' build outputs land in their own ``build/``.
+"""
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+
+CHILD = r'''
+import json, os, sys
+import torch
+sys.path.insert(0, os.getcwd())
+import chip_smoke as cs
+from gradtts_tpu_torch.config import get_config
+from gradtts_tpu_torch.models.tts import GradTTS
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+device = torch.device('cuda')
+card = sys.argv[1]
+cs.phase_build()
+cs.phase_synth(device, card)
+os.makedirs(cs.WORK, exist_ok=True)
+ckpt = os.path.join(cs.WORK, 'ljspeech_seeded.pt')
+torch.save(cs.seeded_state_dict(GradTTS.from_config(get_config('ljspeech')),
+                                 seed=0), ckpt)
+cs.phase_likelihood(device, card, ckpt)
+'''
+
+
+def _turn(tree, card):
+    """Runs CHILD in ``tree``; returns its synth and likelihood lines."""
+    proc = subprocess.run([sys.executable, '-c', CHILD, card], cwd=tree,
+                          capture_output=True, text=True, timeout=1500)
+    if proc.returncode != 0:
+        raise SystemExit(f'{tree}: exited {proc.returncode}\n'
+                         f'{proc.stderr[-3000:]}')
+    lines = {}
+    for ln in proc.stdout.splitlines():
+        if ln.startswith('{'):
+            d = json.loads(ln)
+            lines[d.get('phase')] = d
+    return lines['synth'], lines['likelihood']
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
+    ap.add_argument('parent')
+    ap.add_argument('change')
+    ap.add_argument('--order', default='pccp')
+    args = ap.parse_args()
+    smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                          '--format=csv,noheader'], capture_output=True,
+                         text=True, timeout=60)
+    card = smi.stdout.strip().splitlines()[0]
+    trees = {'p': os.path.abspath(args.parent),
+             'c': os.path.abspath(args.change)}
+    runs = {'p': [], 'c': []}
+    for i, which in enumerate(args.order):
+        synth, lik = _turn(trees[which], card)
+        row = {'turn': i, 'tree': 'parent' if which == 'p' else 'change',
+               'card': card,
+               'synth_audio_s_per_s': synth['audio_s_per_s'],
+               'synth_s_per_call': synth['seconds_per_call'],
+               'synth_device_busy_ms': synth['device_busy_ms'],
+               'synth_device_idle_share': synth['device_idle_share'],
+               'synth_device_kernels': synth['device_kernels'],
+               'synth_k2_ms': synth['kernel_ms']['la_stats_kernel'],
+               'synth_k3_ms': synth['kernel_ms']['la_apply_kernel'],
+               'lik_s_per_call': lik['seconds_per_call'],
+               'lik_hypotheses_per_s': lik['hypotheses_per_s'],
+               'lik_device_busy_ms': lik['device_busy_ms'],
+               'lik_k2_ms': lik['kernel_ms']['la_stats_kernel'],
+               'lik_k3_ms': lik['kernel_ms']['la_apply_kernel']}
+        runs[which].append(row)
+        print(json.dumps(row), flush=True)
+    summary = {'card': card, 'order': args.order}
+    for which, name in (('p', 'parent'), ('c', 'change')):
+        for key in ('synth_audio_s_per_s', 'synth_device_busy_ms',
+                    'lik_s_per_call', 'lik_device_busy_ms'):
+            vals = [r[key] for r in runs[which]]
+            if vals:
+                summary[f'{name}_{key}_median'] = statistics.median(vals)
+    print(json.dumps(summary), flush=True)
+
+
+if __name__ == '__main__':
+    main()
