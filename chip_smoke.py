@@ -9,15 +9,17 @@ Phases, each printing one JSON line:
               per source, all at once), report nvcc's register report and
               count the tensor-core instructions (HMMA, HGMMA) of each
               entry function in the built SASS (cuobjdump), requiring some
-              in every bf16 K2 and K3 entry;
+              in every bf16 K2 and K3 entry and every bf16 K6 and K7 entry
+              without weight tangents, and no spills in the latter;
   2. kernels  hold every kernel against its plain PyTorch version at each
               shape its path gives it, in f32 and bf16, and time kernel and
               plain version in bf16: K1-K3 at the synthesis shapes (B 8,
               768 frames) and the training shapes (B 16, 172-frame crops,
               ragged row tiles) and the likelihood shapes (B 8, 512
-              frames), K4 and K5 at the training shapes, K6 (with and
-              without weight tangents) and K7 at the likelihood shapes, MAS
-              at [16, 384, 1024] and [8, 128, 512];
+              frames), K4 and K5 at the training shapes, K6 and K7 (with
+              and without weight tangents) at the likelihood shapes and,
+              untimed, the training shapes, MAS at [16, 384, 1024] and
+              [8, 128, 512];
   3. slice    a full-width ljspeech GradTTS with every weight drawn from a
               seed: 10-step synthesis (B 2, Tx 64, Ty 256, f32) on the GPU
               against the same on the CPU (plain versions);
@@ -70,8 +72,8 @@ SR, HOP = 22050, 256
 LEVELS = [((80, 768, 64), 5, 1), ((40, 384, 128), 4, 1),
           ((20, 192, 256), 8, 2), ((20, 192, 128), 4, 1),
           ((40, 384, 64), 4, 1)]
-# the training shapes: B 16, 172-frame crops (config.out_size), F*T not a
-# multiple of the attention kernels' 32-row tiles
+# the training shapes: B 16, 172-frame crops (config.out_size); F*T of 3440
+# and 860 leave ragged 32- and 64-row tiles in the attention kernels
 TRAIN_B, CROP = 16, 172
 TRAIN_LEVELS = [((80, 172, 64), 5, 1), ((40, 86, 128), 4, 1),
                 ((20, 43, 256), 8, 2), ((20, 43, 128), 4, 1),
@@ -199,17 +201,24 @@ def phase_build():
             elif fn and 'Used' in ln and 'registers' in ln:
                 ptxas[fn] = f"{ln.split('Used')[1].split(',')[0].strip()}, " \
                             f'{spill}'
-    mma = _tensor_core_counts('linear_attention')
+    mma = {**_tensor_core_counts('linear_attention'),
+           **_tensor_core_counts('linear_attention_jvp')}
+    # K2, K3 and the variants of K6 and K7 without weight tangents (the
+    # Hutchinson probe's) run their bf16 products on the tensor cores
+    tc = [f'{k}<bf16,{c}>' for k in ('la_stats', 'la_apply', 'la_jvp_stats',
+                                      'la_jvp_apply') for c in la._CHANNELS]
     emit({'phase': 'build', 'seconds': time.perf_counter() - t0,
           'per_source_seconds': {n: r['seconds'] for n, r in report.items()},
           'flags': ' '.join(_build.NVCC_FLAGS), 'ptxas': ptxas,
-          'tensor_core_instructions': mma})
-    # K2 and K3 run their bf16 products on the tensor cores
-    for kernel in ('la_stats', 'la_apply'):
-        for c in la._CHANNELS:
-            fn = f'{kernel}<bf16,{c}>'
-            require(mma.get(fn, 0) > 0, f'build: {fn} has no HMMA or HGMMA '
-                                        f'instruction ({mma.get(fn)})')
+          'tensor_core_instructions': mma,
+          'tensor_core_ptxas': {fn: ptxas.get(fn) for fn in tc}})
+    for fn in tc:
+        require(mma.get(fn, 0) > 0, f'build: {fn} has no HMMA or HGMMA '
+                                    f'instruction ({mma.get(fn)})')
+        # (nvcc reports only what this call built)
+        if fn.startswith('la_jvp') and fn in ptxas:
+            require(ptxas[fn].endswith(' 0 bytes spill stores'),
+                    f'build: {fn} spills ({ptxas[fn]})')
 
 
 # ---- phase 2 ---------------------------------------------------------------
@@ -269,7 +278,9 @@ def phase_kernels(device):
     ragged row tiles) and the likelihood shapes (B 8, Ty 512); K4, K5 at
     the training shapes; K6 and K7 at the likelihood shapes, timed in the
     variant without weight tangents that the Hutchinson jvp runs and
-    checked in both; MAS at [16, 384, 1024] and [8, 128, 512]. Returns
+    checked in both, and checked (untimed) at the training shapes, whose
+    ragged 64-row tiles the likelihood shapes never leave; MAS at
+    [16, 384, 1024] and [8, 128, 512]. Returns
     {kernel: {'max_abs_err', path: per-call sums}}."""
     import numpy as np
     import torch
@@ -303,10 +314,9 @@ def phase_kernels(device):
                 w_out, b_out = rand((H, C), 1 / math.sqrt(H)), rand((C,), 0.1)
                 g = torch.tensor([0.7], device=device)
                 xr = x.view(bsz, N, C)
-                chunk = la.split_chunk(bsz, N)           # K6, K7
-                chunk2 = la.split_chunk(bsz, N, la._TC_ROWS)   # K2, K3
+                chunk = la.split_chunk(bsz, N)       # K2, K3, K6, K7
                 m_p, ctx_p, den_p = la.merge_stats(
-                    *la.attention_stats_plain(xr, wk, wv, chunk2))
+                    *la.attention_stats_plain(xr, wk, wv, chunk))
                 ctx2, bias = la.fold_context(ctx_p, den_p, w_out, b_out, g)
                 ctx2 = ctx2.to(dtype)
                 fns = {
@@ -315,9 +325,9 @@ def phase_kernels(device):
                         lambda: gn.groupnorm_mish_plain(x, mask, gamma,
                                                         beta)),
                     'attention_stats': (
-                        lambda: la.attention_stats(xr, wk, wv, chunk2),
+                        lambda: la.attention_stats(xr, wk, wv, chunk),
                         lambda: la.attention_stats_plain(xr, wk, wv,
-                                                         chunk2)),
+                                                         chunk)),
                     'attention_apply': (
                         lambda: la.attention_apply(xr, wq, ctx2, bias),
                         lambda: la.attention_apply_plain(xr, wq, ctx2,
@@ -387,8 +397,8 @@ def phase_kernels(device):
                         + bsz * (C * H + H * H) * size + 2 * bsz * H * 4
                         + 2 * C * H * 4,
                         bsz * N * (16 * C * H + 4 * H * 32), dn)
-                variants = {}
-                if path == 'likelihood':
+                variants, untimed = {}, ()
+                if path in ('likelihood', 'train'):
                     dx = rand((bsz, N, C), 1.0, dtype)
                     dwq, dwk, dwv = (rand((C, H), 0.05, dtype)
                                      for _ in range(3))
@@ -420,6 +430,12 @@ def phase_kernels(device):
                                 xr, dx, wq, dwq, a, da, abias, adbias),
                             lambda: la.attention_jvp_apply_plain(
                                 xr, dx, wq, dwq, a, da, abias, adbias))}
+                    if path == 'train':
+                        # the ragged 64-row tiles of the training crops,
+                        # which the likelihood shapes never leave: checked,
+                        # not timed (the training path launches neither)
+                        untimed = ('attention_jvp_stats',
+                                   'attention_jvp_apply')
                     pairs['attention_jvp_stats'] = _jvp_stats_pairs
                     pairs['attention_jvp_apply'] = lambda got, want: [
                         (a_, b_, False) for a_, b_ in zip(got, want)]
@@ -447,7 +463,8 @@ def phase_kernels(device):
                     st['max_abs_err'] = max(st['max_abs_err'], err)
                     require(ok, f'{name} {dn} {(bsz, F, T, C)}: max abs err '
                                 f'{err} over tolerance {tol}')
-                    if dtype == torch.bfloat16:   # the main paths' dtype
+                    if dtype == torch.bfloat16 and name not in untimed:
+                        # the main paths' dtype
                         mult, nbytes, flops, peak = work[name]
                         _timed(st.setdefault(path, _stat()), mult, fn, plain,
                                nbytes, flops, peak, line[name])

@@ -121,16 +121,70 @@ struct RowTile {
   }
 };
 
-// rows [0, rows) of a row-major [*, W] bf16 matrix into a RowTile<W> with
-// cp.async, all threads of the block taking part; rows >= valid are zeros.
+// rows [0, rows) and columns [0, W) of a row-major bf16 matrix whose rows
+// are ld values apart (default W) into a RowTile<W> with cp.async, all
+// threads of the block taking part; rows >= valid are zeros.
 template <int W>
 __device__ __forceinline__ void load_tile_async(const __nv_bfloat16* __restrict__ src, int rows,
-                                                int valid, unsigned char* tile) {
+                                                int valid, unsigned char* tile, int ld = W) {
   constexpr int CH = W / 8;
   for (int i = threadIdx.x; i < rows * CH; i += blockDim.x) {
     const int r = i / CH, c = i % CH;
     const bool ok = r < valid;
-    cp_async16(RowTile<W>::at(tile, r, c), src + (size_t)(ok ? r : 0) * W + c * 8, ok ? 16 : 0);
+    cp_async16(RowTile<W>::at(tile, r, c), src + (size_t)(ok ? r : 0) * ld + c * 8, ok ? 16 : 0);
+  }
+}
+
+// Byte offset of (row, col) in a [16, 32] bf16 exchange tile: two rows to a
+// 128-byte line, its 16-byte chunks XOR-swizzled by the line, so that the
+// accumulators' 4-byte stores (8 rows x 4 lanes) and ldmatrix's 8 rows at
+// one column each hit 32 distinct banks.
+__device__ __forceinline__ int xch(int row, int col) {
+  const int line = row >> 1, chunk = ((row & 1) << 2) | (col >> 3);
+  return line * 128 + ((chunk ^ (line & 7)) << 4) + (col & 7) * 2;
+}
+
+// a, b (f32) as bf16 hi and lo parts, hi + lo = value to ~2^-17 of it
+__device__ __forceinline__ void store_split(unsigned char* hi, unsigned char* lo, float a,
+                                            float b) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(h);
+  *reinterpret_cast<__nv_bfloat162*>(hi) = h;
+  *reinterpret_cast<__nv_bfloat162*>(lo) = __floats2bfloat162_rn(a - hf.x, b - hf.y);
+}
+
+// The f32 context block of one head, [32, 32] (rows d: k columns, columns
+// e: v columns), += a^T b over 16 rows on the tensor cores, a and b each
+// held as bf16 hi and lo [16, 32] exchange tiles (xch): lo*hi + hi*lo +
+// hi*hi in f32 accumulators (lo*lo, ~2^-18 of each product, is left out).
+// acc[md][ne] is rows 16 md + g (+ 8), columns 8 ne + 2q (+ 1) of the
+// block, in the mma accumulator layout.
+__device__ __forceinline__ void split_context_mma(float (&acc)[2][4][4], const unsigned char* a_hi,
+                                                  const unsigned char* a_lo,
+                                                  const unsigned char* b_hi,
+                                                  const unsigned char* b_lo, int lane) {
+  uint32_t ah[2][4], al[2][4];
+#pragma unroll
+  for (int md = 0; md < 2; ++md) {
+    const int o = xch((lane / 16) * 8 + lane % 8, 16 * md + (lane / 8) % 2 * 8);
+    ldmatrix_x4_trans(ah[md], a_hi + o);
+    ldmatrix_x4_trans(al[md], a_lo + o);
+  }
+#pragma unroll
+  for (int np = 0; np < 2; ++np) {
+    uint32_t bh[4], bl[4];
+    const int o = xch(lane % 16, 16 * np + (lane / 16) * 8);
+    ldmatrix_x4_trans(bh, b_hi + o);
+    ldmatrix_x4_trans(bl, b_lo + o);
+#pragma unroll
+    for (int md = 0; md < 2; ++md)
+#pragma unroll
+      for (int n2 = 0; n2 < 2; ++n2) {
+        float(&d)[4] = acc[md][2 * np + n2];
+        mma_bf16_16816(d, al[md], bh[2 * n2], bh[2 * n2 + 1]);
+        mma_bf16_16816(d, ah[md], bl[2 * n2], bl[2 * n2 + 1]);
+        mma_bf16_16816(d, ah[md], bh[2 * n2], bh[2 * n2 + 1]);
+      }
   }
 }
 

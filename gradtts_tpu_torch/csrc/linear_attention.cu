@@ -70,7 +70,9 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 using gtt::from_f32;
+using gtt::store_split;
 using gtt::to_f32;
+using gtt::xch;
 
 constexpr int H = 128;          // heads * dim_head of every U-Net attention
 constexpr int DH = 32;          // dim_head
@@ -104,24 +106,6 @@ template <int C>
 __host__ __device__ constexpr size_t apply_smem_tc() {
   return (size_t)gtt::RowTile<H>::bytes(C) + (size_t)gtt::RowTile<C>::bytes(H) +
          APPLY_STAGES * (size_t)gtt::RowTile<C>::bytes(TR) + C * sizeof(float);
-}
-
-// Byte offset of (row, col) in a [16, 32] bf16 exchange tile: two rows to a
-// 128-byte line, its 16-byte chunks XOR-swizzled by the line, so that the
-// accumulators' 4-byte stores (8 rows x 4 lanes) and ldmatrix's 8 rows at
-// one column each hit 32 distinct banks.
-__device__ __forceinline__ int xch(int row, int col) {
-  const int line = row >> 1, chunk = ((row & 1) << 2) | (col >> 3);
-  return line * 128 + ((chunk ^ (line & 7)) << 4) + (col & 7) * 2;
-}
-
-// a, b (f32) as bf16 hi and lo parts, hi + lo = value to ~2^-17 of it
-__device__ __forceinline__ void store_split(unsigned char* hi, unsigned char* lo, float a,
-                                            float b) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  const float2 hf = __bfloat1622float2(h);
-  *reinterpret_cast<__nv_bfloat162*>(hi) = h;
-  *reinterpret_cast<__nv_bfloat162*>(lo) = __floats2bfloat162_rn(a - hf.x, b - hf.y);
 }
 
 // K2, bf16. grid (S, B); block THREADS = 8 warps.
@@ -279,31 +263,8 @@ __device__ __forceinline__ void stats_tc(const bf16* __restrict__ x, const bf16*
           }
       }
       // context block += exp(k - m)^T v over the 16 rows on the tensor
-      // cores: lo*hi + hi*lo + hi*hi, f32 accumulators (lo*lo, ~2^-18 of
-      // each product, is left out)
-      uint32_t eh[2][4], el[2][4];
-#pragma unroll
-      for (int md = 0; md < 2; ++md) {
-        const int o = xch((lane / 16) * 8 + lane % 8, 16 * md + (lane / 8) % 2 * 8);
-        gtt::ldmatrix_x4_trans(eh[md], ek_hi + o);
-        gtt::ldmatrix_x4_trans(el[md], ek_lo + o);
-      }
-#pragma unroll
-      for (int np = 0; np < 2; ++np) {
-        uint32_t vh[4], vl[4];
-        const int o = xch(lane % 16, 16 * np + (lane / 16) * 8);
-        gtt::ldmatrix_x4_trans(vh, v_hi + o);
-        gtt::ldmatrix_x4_trans(vl, v_lo + o);
-#pragma unroll
-        for (int md = 0; md < 2; ++md)
-#pragma unroll
-          for (int n2 = 0; n2 < 2; ++n2) {
-            float(&d)[4] = ctx[md][2 * np + n2];
-            gtt::mma_bf16_16816(d, el[md], vh[2 * n2], vh[2 * n2 + 1]);
-            gtt::mma_bf16_16816(d, eh[md], vl[2 * n2], vl[2 * n2 + 1]);
-            gtt::mma_bf16_16816(d, eh[md], vh[2 * n2], vh[2 * n2 + 1]);
-          }
-      }
+      // cores, as a split product
+      gtt::split_context_mma(ctx, ek_hi, ek_lo, v_hi, v_lo, lane);
       __syncwarp();  // the exchange tiles and alpha_s are free for the next block
     }
     __syncthreads();  // every warp is done with ring slot t % STAGES

@@ -49,19 +49,19 @@ from gradtts_tpu_torch.ops import _build
 
 HIDDEN = 128               # heads * dim_head the CUDA kernels are built for
 DIM_HEAD = 32              # dim_head K5 is built for (csrc: DH)
-_ROWS = 32                 # csrc/linear_attention*.cu: rows per tile R
-_TC_ROWS = 64              # csrc/linear_attention.cu: bf16 rows per tile TR
+_ROWS = 32                 # csrc/linear_attention*.cu: f32 rows per tile R
+_TC_ROWS = 64              # csrc/linear_attention*.cu: bf16 rows per tile TR
 _TARGET_BLOCKS = 2 * 132   # two blocks per SM of an H100
 _CHANNELS = (16, 32, 64, 128, 256)
 _NEG = -1e30               # running-max start value (Pallas _NEG)
 
 
-def split_chunk(B: int, N: int, rows: int = _ROWS) -> int:
-    """Rows per split of a forward kernel: enough splits to fill the card
-    at batch B, each a whole number of the kernel's row tiles of ``rows``
-    (K2 and K3: :data:`_TC_ROWS`; K6 and K7: :data:`_ROWS`)."""
-    n_splits = max(1, min(-(-_TARGET_BLOCKS // B), -(-N // rows)))
-    return -(-N // (n_splits * rows)) * rows
+def split_chunk(B: int, N: int) -> int:
+    """Rows per split of a forward kernel (K2, K3, K6, K7): enough splits
+    to fill the card at batch B, each a whole number of the bf16 kernels'
+    64-row tiles (:data:`_TC_ROWS`)."""
+    n_splits = max(1, min(-(-_TARGET_BLOCKS // B), -(-N // _TC_ROWS)))
+    return -(-N // (n_splits * _TC_ROWS)) * _TC_ROWS
 
 
 def bwd_roles(kernel: str, C: int) -> int:
@@ -279,7 +279,7 @@ def attention_apply(x, w_q, ctx2, bias):
     _check('attention_apply', x, {'w_q': w_q, 'ctx2': ctx2, 'bias': bias},
            [((C, HIDDEN), x.dtype), ((B, HIDDEN, C), x.dtype),
             ((C,), torch.float32)])
-    chunk = split_chunk(B, N, _TC_ROWS)
+    chunk = split_chunk(B, N)
     out = torch.empty_like(x)
     lib = _build.load('linear_attention')
     _build.check(lib, lib.gtt_la_apply(
@@ -512,7 +512,7 @@ def _forward(x, w_q, w_k, w_v, w_out, b_out, g, dim_head, chunk, ops):
     xr = x.reshape(B, F * T, C)
     dt = x.dtype
     if chunk is None:
-        chunk = split_chunk(B, F * T, _TC_ROWS)
+        chunk = split_chunk(B, F * T)
     m, cx, den = merge_stats(*stats(xr, w_k.to(dt).contiguous(),
                                     w_v.to(dt).contiguous(), chunk,
                                     dim_head))
@@ -695,8 +695,7 @@ def linear_attention_rezero(x, w_q, w_k, w_v, w_out, b_out, g,
     b_out) * g + x in x's dtype, through K2 and K3; under autograd its
     grads through K4 and K5, under forward mode its tangent through K6 and
     K7 (their plain versions for CPU tensors). ``chunk`` is the rows per
-    split of K2 and K6 (default: :func:`split_chunk` at each kernel's row
-    tile)."""
+    split of K2 and K6 (default: :func:`split_chunk`)."""
     return _run(_KERNELS, (x, w_q, w_k, w_v, w_out, b_out, g), dim_head,
                 chunk)
 

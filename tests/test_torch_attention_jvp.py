@@ -106,6 +106,63 @@ def test_jvp_matches_pallas_and_reference_jvp(monkeypatch, case, n_splits,
         _close(dy.numpy(), dy_j, F32_FRAC, 'dy')
 
 
+class _LaunchRecorder:
+    """Stands in for the kernels' library: records the (B, N, C, chunk, S)
+    that each C entry point is launched with (its arguments before dtype
+    and stream) and reports success."""
+
+    def __init__(self):
+        self.launches = []
+
+    def __getattr__(self, name):
+        def launch(*args):
+            self.launches.append((name, args[-7:-2]))
+            return 0
+        return launch
+
+
+@pytest.mark.parametrize('x_only', [False, True])
+def test_default_splits_are_whole_tiles_and_match_pallas_jvp(monkeypatch,
+                                                             x_only):
+    # ragged N (5 * 45 = 225 rows) at the U-Net's H 128, dim_head 32, under
+    # the default chunk. (a) The CUDA wrappers hand K6 and K7 whole 64-row
+    # splits: their launch arguments, recorded on the meta device (a
+    # non-CPU tensor that takes the kernels' route without data). (b) The
+    # tangent on the CPU matches jax.jvp of the Pallas jvp (interpret mode).
+    B, F, T, C, H = 2, 5, 45, 32, 128
+    N = F * T
+    args = _inputs(61, B, F, T, C, H)
+    tans = _tangents(62, args)
+    lib = _LaunchRecorder()
+    monkeypatch.setattr(tla._build, 'load', lambda name: lib)
+    monkeypatch.setattr(tla._build, 'stream_of', lambda t: 0)
+    prim = [torch.from_numpy(a).to('meta') for a in args]
+    tan = [torch.from_numpy(t).to('meta') for t in tans]
+    with torch.no_grad():
+        if x_only:
+            out = torch.func.jvp(
+                lambda x: tla.linear_attention_rezero(x, *prim[1:]),
+                (prim[0],), (tan[0],))
+        else:
+            out = torch.func.jvp(tla.linear_attention_rezero, tuple(prim),
+                                 tuple(tan))
+    assert all(o.shape == (B, F, T, C) for o in out)
+    jvp = {name: a for name, a in lib.launches if 'jvp' in name}
+    assert set(jvp) == {'gtt_la_jvp_stats', 'gtt_la_jvp_apply'}
+    for name, (b, n, c, chunk, splits) in jvp.items():
+        assert (b, n, c) == (B, N, C), name
+        assert chunk % tla._TC_ROWS == 0 and chunk < N, name
+        assert splits == -(-N // chunk), name
+
+    monkeypatch.undo()
+    y, dy = _port_jvp(args, tans, 32, None, x_only)
+    y_j, dy_j = _jax_jvp(
+        lambda *a: jla.fused_linear_attention_rezero_jvp(*a, 32), args, tans,
+        x_only)
+    _close(y.numpy(), y_j, F32_FRAC, 'y')
+    _close(dy.numpy(), dy_j, F32_FRAC, 'dy')
+
+
 def test_bf16_jvp_matches_pallas_jvp(monkeypatch):
     # bf16 x and tangent with f32 weights, both packages rounding q, dq, A,
     # dA, y and dy to bf16 at the same points; the JAX package's bf16

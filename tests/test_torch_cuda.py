@@ -81,7 +81,7 @@ def test_attention_stats_and_apply_kernels_match_plain(cuda, C, dtype):
             w_out = t((H, C), H ** -0.5, torch.float32)
             b_out = t((C,), 0.1, torch.float32)
             g = torch.tensor([0.7], device=cuda)
-            for chunk in (N, tla.split_chunk(B, N, tla._TC_ROWS), 100):
+            for chunk in (N, tla.split_chunk(B, N), 100):
                 got = tla.attention_stats(x, wk, wv, chunk)
                 torch.cuda.synchronize()
                 want = tla.attention_stats_plain(x, wk, wv, chunk)
@@ -152,39 +152,51 @@ def test_maximum_path_kernel_equals_plain(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize('weight_tangents', [True, False])
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
-def test_linear_attention_jvp_kernels_match_plain(cuda, dtype,
+@pytest.mark.parametrize('C', tla._CHANNELS)
+def test_linear_attention_jvp_kernels_match_plain(cuda, C, dtype,
                                                   weight_tangents):
-    # K6 (with and without weight tangents) and K7 at a ragged row count
-    # (40 * 43 rows) over several splits, against their plain versions
+    # K6 (with and without weight tangents) and K7 at every channel count:
+    # ragged N (the training crops' 860 and 3440 rows, and 1001, odd), B 1
+    # and 16, K6 over one split, over the wrapper's splits and over splits
+    # that end inside a 64-row tile, against their plain versions
     rng = np.random.default_rng(4)
-    B, N, C, H = 4, 40 * 43, 64, 128
+    H = tla.HIDDEN
 
     def t(shape, scale=1.0, dt=dtype):
         return torch.tensor(rng.standard_normal(shape) * scale,
                             device=cuda).to(dt)
 
-    x, dx = t((B, N, C)), t((B, N, C))
-    w = [t((C, H), 0.5 / C ** 0.5) for _ in range(3)]
-    dw = [t((C, H), 0.05) for _ in range(3)] if weight_tangents \
-        else [None] * 3
-    chunk = tla.split_chunk(B, N)
-    got = tla.attention_jvp_stats(x, dx, w[1], w[2], dw[1], dw[2], chunk)
-    torch.cuda.synchronize()
-    want = tla.attention_jvp_stats_plain(x, dx, w[1], w[2], dw[1], dw[2],
-                                         chunk)
-    # f32 statistics, sums over up to 1720 rows in other orders: each
-    # within 1e-4 of its largest value
-    for g, wt in zip(tla.merge_jvp_stats(*got), tla.merge_jvp_stats(*want)):
-        assert float((g - wt).abs().max()) <= 1e-4 * float(wt.abs().max())
-    a, da = t((B, H, C), 0.1), t((B, H, C), 0.1)
-    bias, dbias = t((C,), 0.1, torch.float32), t((C,), 0.1, torch.float32)
-    got = tla.attention_jvp_apply(x, dx, w[0], dw[0], a, da, bias, dbias)
-    torch.cuda.synchronize()
-    want = tla.attention_jvp_apply_plain(x, dx, w[0], dw[0], a, da, bias,
-                                         dbias)
     tol = 1e-4 if dtype == torch.float32 else 2 ** -6
-    for g, wt in zip(got, want):
-        torch.testing.assert_close(g.float(), wt.float(), rtol=tol, atol=tol)
+    for B in (1, 16):
+        for N in (860, 3440, 1001):
+            x, dx = t((B, N, C)), t((B, N, C))
+            w = [t((C, H), 0.5 / C ** 0.5) for _ in range(3)]
+            dw = [t((C, H), 0.05) for _ in range(3)] if weight_tangents \
+                else [None] * 3
+            for chunk in (N, tla.split_chunk(B, N), 100):
+                got = tla.attention_jvp_stats(x, dx, w[1], w[2], dw[1],
+                                              dw[2], chunk)
+                torch.cuda.synchronize()
+                want = tla.attention_jvp_stats_plain(x, dx, w[1], w[2],
+                                                     dw[1], dw[2], chunk)
+                assert got[1].shape == (B, -(-N // chunk), 4, 32, 32)
+                # f32 statistics, sums over up to 3440 rows in other
+                # orders: each within 1e-4 of its largest value
+                for g, wt in zip(tla.merge_jvp_stats(*got),
+                                 tla.merge_jvp_stats(*want)):
+                    assert float((g - wt).abs().max()) <= 1e-4 * float(
+                        wt.abs().max())
+            a, da = t((B, H, C), 0.1), t((B, H, C), 0.1)
+            bias = t((C,), 0.1, torch.float32)
+            dbias = t((C,), 0.1, torch.float32)
+            got = tla.attention_jvp_apply(x, dx, w[0], dw[0], a, da, bias,
+                                          dbias)
+            torch.cuda.synchronize()
+            want = tla.attention_jvp_apply_plain(x, dx, w[0], dw[0], a, da,
+                                                 bias, dbias)
+            for g, wt in zip(got, want):
+                torch.testing.assert_close(g.float(), wt.float(), rtol=tol,
+                                           atol=tol)
 
 
 @pytest.mark.cuda

@@ -1,6 +1,6 @@
 """Two checkouts of the PyTorch/CUDA port against each other on one GPU, in
 turns: synthesis audio-s/s and device-busy ms, the likelihood call's time
-and device-busy ms, and K2's and K3's device ms in each.
+and device-busy ms, and K2's, K3's, K6's and K7's device ms in each.
 
     python3 tools/port_turns.py PARENT_DIR CHANGE_DIR [--order pccp]
 
@@ -85,13 +85,16 @@ def main():
                'lik_hypotheses_per_s': lik['hypotheses_per_s'],
                'lik_device_busy_ms': lik['device_busy_ms'],
                'lik_k2_ms': lik['kernel_ms']['la_stats_kernel'],
-               'lik_k3_ms': lik['kernel_ms']['la_apply_kernel']}
+               'lik_k3_ms': lik['kernel_ms']['la_apply_kernel'],
+               'lik_k6_ms': lik['kernel_ms']['la_jvp_stats_kernel'],
+               'lik_k7_ms': lik['kernel_ms']['la_jvp_apply_kernel']}
         runs[which].append(row)
         print(json.dumps(row), flush=True)
     summary = {'card': card, 'order': args.order}
     for which, name in (('p', 'parent'), ('c', 'change')):
         for key in ('synth_audio_s_per_s', 'synth_device_busy_ms',
-                    'lik_s_per_call', 'lik_device_busy_ms'):
+                    'lik_s_per_call', 'lik_device_busy_ms', 'lik_k6_ms',
+                    'lik_k7_ms'):
             vals = [r[key] for r in runs[which]]
             if vals:
                 summary[f'{name}_{key}_median'] = statistics.median(vals)
