@@ -9,11 +9,14 @@ Phases, each printing one JSON line:
               per source, all at once), report nvcc's register report and
               count the tensor-core instructions (HMMA, HGMMA) of each
               entry function in the built SASS (cuobjdump), requiring some
-              in every bf16 K2 and K3 entry and every bf16 K6 and K7 entry
-              without weight tangents, and no spills in the latter;
+              in every bf16 K2, K3 and K5 entry and every bf16 K6 and K7
+              entry without weight tangents, and no spills in the K5, K6
+              and K7 ones; and K1's longest SASS loop per entry (its
+              instructions, MUFU and FP32 counts);
   2. kernels  hold every kernel against its plain PyTorch version at each
               shape its path gives it, in f32 and bf16, and time kernel and
-              plain version in bf16: K1-K3 at the synthesis shapes (B 8,
+              plain version in bf16 (K1's two passes also apart, K5 run
+              twice for the same bits): K1-K3 at the synthesis shapes (B 8,
               768 frames) and the training shapes (B 16, 172-frame crops,
               ragged row tiles) and the likelihood shapes (B 8, 512
               frames), K4 and K5 at the training shapes, K6 and K7 (with
@@ -144,6 +147,24 @@ def cuda_ms(fn, reps, warmup=2):
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps=20):
+    """Mean device time of ``fn`` over ``reps`` back-to-back calls, without
+    the host's share: the calls are queued behind a ~10 ms device-side
+    sleep, so the device never waits for the host between them (where
+    ``cuda_ms`` times a small kernel's Python wrapper as well)."""
+    import torch
+    fn()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    torch.cuda._sleep(20_000_000)           # cycles, ~10 ms at 1.98 GHz
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def bound(nbytes, flops, dtype_name):
     """(least ms for the work, what bounds it) on the H100's published rates."""
     t_bytes, t_ops = nbytes / HBM_BPS, flops / PEAK_FLOPS[dtype_name]
@@ -156,9 +177,11 @@ def bound(nbytes, flops, dtype_name):
 
 def _entry_name(mangled):
     """_ZN..gn_stats_kernelI13__nv_bfloat16Li64E.. -> gn_stats<bf16,64>,
-    ..la_jvp_stats_kernelIfLi64ELb1E.. -> la_jvp_stats<f32,64,dW>."""
+    ..la_jvp_stats_kernelIfLi64ELb1E.. -> la_jvp_stats<f32,64,dW>; the
+    kernels templated on C alone are bf16 (K5's tensor-core kernels):
+    ..la_bwd2_dx_kernelILi64E.. -> la_bwd2_dx<bf16,64>."""
     m = re.search(r'((?:gn|la)_[a-z0-9_]+?)_kernelI'
-                  r'(f|13__nv_bfloat16)Li(\d+)E(?:Lb([01])E)?', mangled)
+                  r'(f|13__nv_bfloat16)?Li(\d+)E(?:Lb([01])E)?', mangled)
     if m:
         return (f"{m[1]}<{'f32' if m[2] == 'f' else 'bf16'},{m[3]}"
                 f"{',dW' if m[4] == '1' else ''}>")
@@ -166,23 +189,53 @@ def _entry_name(mangled):
     return plain[1] if plain else mangled
 
 
-def _tensor_core_counts(library):
-    """{entry function: HMMA + HGMMA instructions} of a built library's
-    SASS, by the cuobjdump of the toolkit that built it."""
+def _sass(path):
+    """{entry function: [(address, opcode line)]} of a built library's SASS,
+    by the cuobjdump of the toolkit that built the port's kernels."""
     from gradtts_tpu_torch.ops import _build
     tool = os.path.join(os.path.dirname(_build._nvcc()), 'cuobjdump')
-    proc = subprocess.run([tool, '-sass', _build.library_path(library)],
-                          capture_output=True, text=True, timeout=300)
-    require(proc.returncode == 0, f'cuobjdump -sass {library} exited '
+    proc = subprocess.run([tool, '-sass', path], capture_output=True,
+                          text=True, timeout=300)
+    require(proc.returncode == 0, f'cuobjdump -sass {path} exited '
                                   f'{proc.returncode}: {proc.stderr[-2000:]}')
-    counts, fn = {}, None
+    entries, fn = {}, None
     for ln in proc.stdout.splitlines():
         if 'Function :' in ln:
             fn = _entry_name(ln.split('Function :')[1].strip())
-            counts[fn] = 0
-        elif fn and re.search(r'\bHG?MMA\.', ln):
-            counts[fn] += 1
-    return counts
+            entries[fn] = []
+        elif fn:
+            m = re.match(r'\s*/\*([0-9a-f]{4,})\*/\s+(.*?);', ln)
+            if m:
+                entries[fn].append((int(m[1], 16), m[2]))
+    return entries
+
+
+def _tensor_core_counts(library):
+    """{entry function: HMMA + HGMMA instructions} of a built library."""
+    from gradtts_tpu_torch.ops import _build
+    return {fn: sum(bool(re.search(r'\bHG?MMA\.', op)) for _, op in ins)
+            for fn, ins in _sass(_build.library_path(library)).items()}
+
+
+def sass_loops(path):
+    """{entry function: its longest loop} of the library at ``path``: the
+    instructions from a backward branch's target to the branch, with
+    their MUFU (special-function unit) and FP32 (FADD, FMUL, FFMA)
+    counts; None where an entry has no loop. For K1's row loops."""
+    out = {}
+    for fn, ins in _sass(path).items():
+        best = None
+        for addr, op in ins:
+            m = re.search(r'\bBRA\b.*?0x([0-9a-f]+)', op)
+            if m and int(m[1], 16) < addr:
+                body = [o for a, o in ins if int(m[1], 16) <= a <= addr]
+                if best is None or len(body) > best['instructions']:
+                    best = {'instructions': len(body),
+                            'mufu': sum('MUFU' in o for o in body),
+                            'fp32': sum(bool(re.search(
+                                r'\bF(ADD|MUL|FMA)\b', o)) for o in body)}
+        out[fn] = best
+    return out
 
 
 def phase_build():
@@ -202,21 +255,25 @@ def phase_build():
                 ptxas[fn] = f"{ln.split('Used')[1].split(',')[0].strip()}, " \
                             f'{spill}'
     mma = {**_tensor_core_counts('linear_attention'),
+           **_tensor_core_counts('linear_attention_bwd'),
            **_tensor_core_counts('linear_attention_jvp')}
-    # K2, K3 and the variants of K6 and K7 without weight tangents (the
+    # K2, K3, K5 and the variants of K6 and K7 without weight tangents (the
     # Hutchinson probe's) run their bf16 products on the tensor cores
-    tc = [f'{k}<bf16,{c}>' for k in ('la_stats', 'la_apply', 'la_jvp_stats',
+    tc = [f'{k}<bf16,{c}>' for k in ('la_stats', 'la_apply', 'la_bwd2_dx',
+                                      'la_bwd2_dw', 'la_jvp_stats',
                                       'la_jvp_apply') for c in la._CHANNELS]
     emit({'phase': 'build', 'seconds': time.perf_counter() - t0,
           'per_source_seconds': {n: r['seconds'] for n, r in report.items()},
           'flags': ' '.join(_build.NVCC_FLAGS), 'ptxas': ptxas,
           'tensor_core_instructions': mma,
-          'tensor_core_ptxas': {fn: ptxas.get(fn) for fn in tc}})
+          'tensor_core_ptxas': {fn: ptxas.get(fn) for fn in tc},
+          'groupnorm_mish_loops': sass_loops(
+              _build.library_path('groupnorm_mish'))})
     for fn in tc:
         require(mma.get(fn, 0) > 0, f'build: {fn} has no HMMA or HGMMA '
                                     f'instruction ({mma.get(fn)})')
         # (nvcc reports only what this call built)
-        if fn.startswith('la_jvp') and fn in ptxas:
+        if fn.startswith(('la_jvp', 'la_bwd2')) and fn in ptxas:
             require(ptxas[fn].endswith(' 0 bytes spill stores'),
                     f'build: {fn} spills ({ptxas[fn]})')
 
@@ -236,20 +293,22 @@ def _err(got, want, tol, rel_to_max):
 
 
 def _stat():
-    return {'ms': 0.0, 'plain_ms': 0.0, 'bytes_ms': 0.0, 'ops_ms': 0.0}
+    return {'ms': 0.0, 'device_ms': 0.0, 'plain_ms': 0.0, 'bytes_ms': 0.0,
+            'ops_ms': 0.0}
 
 
 def _timed(st, mult, fn, plain, nbytes, flops, peak, line):
     """Times kernel and plain version once each; adds mult launches' worth
     to the per-call sums in ``st``; returns the line's entry."""
-    ms, plain_ms = cuda_ms(fn, 20), cuda_ms(plain, 3, 1)
+    ms, plain_ms, dev_ms = cuda_ms(fn, 20), cuda_ms(plain, 3, 1), device_ms(fn)
     b_ms, by = bound(nbytes, flops, peak)
     st['ms'] += mult * ms
+    st['device_ms'] += mult * dev_ms
     st['plain_ms'] += mult * plain_ms
     st['bytes_ms'] += mult * nbytes / HBM_BPS * 1e3
     st['ops_ms'] += mult * flops / PEAK_FLOPS[peak] * 1e3
-    line.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
-                per_call=mult)
+    line.update(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=by, per_call=mult)
 
 
 def _per_den(blocks, den):
@@ -463,11 +522,24 @@ def phase_kernels(device):
                     st['max_abs_err'] = max(st['max_abs_err'], err)
                     require(ok, f'{name} {dn} {(bsz, F, T, C)}: max abs err '
                                 f'{err} over tolerance {tol}')
+                    if name == 'attention_bwd_sweep2':
+                        # per-split partials summed in a fixed order, no
+                        # atomics: a second run gives the same bits
+                        again = fn()
+                        torch.cuda.synchronize()
+                        same = all(torch.equal(a_, b_)
+                                   for a_, b_ in zip(got, again))
+                        line[name]['bitwise_repeatable'] = same
+                        require(same, f'{name} {dn} {(bsz, F, T, C)}: two '
+                                      'runs differ')
                     if dtype == torch.bfloat16 and name not in untimed:
                         # the main paths' dtype
                         mult, nbytes, flops, peak = work[name]
                         _timed(st.setdefault(path, _stat()), mult, fn, plain,
                                nbytes, flops, peak, line[name])
+                        if name == 'groupnorm_mish':
+                            line[name].update(_gn_passes(x, mask, gamma,
+                                                         beta))
                     if name in variants:
                         vfn, vplain = variants[name]
                         got = vfn()
@@ -500,6 +572,24 @@ def phase_kernels(device):
     _kernel_mas(device, rng, stats['maximum_path'], 'likelihood',
                 LIK_MAS_SHAPE)
     return stats
+
+
+def _gn_passes(x, mask, gamma, beta):
+    """K1's two passes timed apart, ms each: CUDA events over back-to-back
+    calls, and the device time alone (profiler)."""
+    from gradtts_tpu_torch.ops import groupnorm_mish as gn
+    chunk, tiles = gn._tiling(x)
+    part = gn._stats_pass(x, 8, chunk, tiles)
+
+    def stats():
+        gn._stats_pass(x, 8, chunk, tiles)
+
+    def apply():
+        gn._apply_pass(x, mask, part, gamma, beta, 8, 1e-5, chunk, tiles)
+
+    return {'stats_ms': cuda_ms(stats, 20), 'apply_ms': cuda_ms(apply, 20),
+            'stats_device_ms': device_ms(stats),
+            'apply_device_ms': device_ms(apply), 'tiles': tiles}
 
 
 def _kernel_mas(device, rng, st, path, shape):
@@ -885,12 +975,6 @@ def _run_cli(module, args):
 def phase_train(device, card):
     import shutil
     import numpy as np
-    import torch
-    from gradtts_tpu_torch.config import get_config
-    from gradtts_tpu_torch.data.dataset import BatchCollate, TextMelDataset
-    from gradtts_tpu_torch.models.tts import GradTTS, set_compute_dtype
-    from gradtts_tpu_torch.train.loop import batch_to
-    from gradtts_tpu_torch.train.state import make_optimizer, train_step
 
     filelist = write_corpus(os.path.join(WORK, 'corpus'), CORPUS_ITEMS)
     log_dir = os.path.join(WORK, 'train')
@@ -924,8 +1008,26 @@ def phase_train(device, card):
     mel = np.load(os.path.join(out, 'mel_0.npy'))
     require(mel.ndim == 2 and mel.shape[1] == 80 and np.isfinite(mel).all(),
             'train: inference from the trained checkpoint is malformed')
+    return phase_train_step(device, card, filelist, {
+        'cli_steps': TRAIN_STEPS, 'cli_seconds': train_s,
+        'resume_seconds': resume_s, 'inference_seconds': infer_s,
+        'epochs': epochs})
 
-    # the train step in-process on one collated batch of the corpus
+
+def phase_train_step(device, card, filelist=None, cli=None):
+    """The train step in-process on one collated batch of the corpus
+    (written here when ``filelist`` is None): launches per step, steps/s,
+    audio-s trained per second and the device share. Emits the ``train``
+    line (with the CLI run's figures ``cli``, where given)."""
+    import torch
+    from gradtts_tpu_torch.config import get_config
+    from gradtts_tpu_torch.data.dataset import BatchCollate, TextMelDataset
+    from gradtts_tpu_torch.models.tts import GradTTS, set_compute_dtype
+    from gradtts_tpu_torch.train.loop import batch_to
+    from gradtts_tpu_torch.train.state import make_optimizer, train_step
+
+    if filelist is None:
+        filelist = write_corpus(os.path.join(WORK, 'corpus'), TRAIN_B)
     cfg = get_config('ljspeech',
                      **{'data.train_filelist_path': filelist})
     dataset = TextMelDataset.from_config(cfg)
@@ -967,9 +1069,7 @@ def phase_train(device, card):
     emit({'phase': 'train', 'card': card, 'batch': TRAIN_B, 'crop': CROP,
           'x_shape': list(batch['x'].shape), 'y_shape': list(batch['y'].shape),
           'dtype': 'bfloat16 compute, float32 parameters',
-          'cli_steps': TRAIN_STEPS, 'cli_seconds': train_s,
-          'resume_seconds': resume_s, 'inference_seconds': infer_s,
-          'epochs': epochs, 'seconds_per_step': per_step,
+          **(cli or {}), 'seconds_per_step': per_step,
           'seconds_all': times, 'steps_per_s': 1 / per_step,
           'audio_s_per_step': TRAIN_AUDIO_S,
           'audio_s_trained_per_s': TRAIN_AUDIO_S / per_step,
@@ -1221,6 +1321,7 @@ def phase_adaptive(device, ckpt):
 
 HAND_KERNELS = ('gn_stats_kernel', 'gn_apply_kernel', 'la_stats_kernel',
                 'la_apply_kernel', 'la_bwd1_kernel', 'la_bwd2_kernel',
+                'la_bwd2_dx_kernel', 'la_bwd2_dw_kernel',
                 'la_jvp_stats_kernel', 'la_jvp_apply_kernel', 'mas_kernel')
 
 
@@ -1347,7 +1448,7 @@ def main():
             'replaces': REPLACES[name],
             'launches': counts[path][name],
             'max_abs_err': st['max_abs_err'], 'ms': sums['ms'],
-            'plain_ms': sums['plain_ms'],
+            'device_ms': sums['device_ms'], 'plain_ms': sums['plain_ms'],
             'bound_ms': max(sums['bytes_ms'], sums['ops_ms']),
             'bound_by': 'bytes' if sums['bytes_ms'] >= sums['ops_ms']
             else 'operations',

@@ -92,9 +92,11 @@ class TrainConfig:
     grad_clip_norm: float = 1.0  # applied per submodule (encoder / decoder)
     use_bf16_compute: bool = True
     # The training fields mirror gradtts_tpu.config so that a preset reads
-    # the same in both packages; the port's trainer (train/loop.py) runs on
-    # one GPU and reads neither the mesh fields, remat_estimator nor
-    # device_mel.
+    # the same in both packages. The port's trainer (train/loop.py) runs on
+    # one GPU with host mels and no remat: it refuses remat_estimator=True,
+    # device_mel=True, mesh_data other than -1 or 1 and mesh_model other
+    # than 1 (None picks the host mel, as the JAX package's auto setting
+    # does off a TPU).
     remat_estimator: bool = False
     device_mel: Optional[bool] = None
 

@@ -6,13 +6,15 @@ plain C interface (no PyTorch headers, so a build takes seconds):
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -Xptxas -v -o <lib> csrc/<name>.cu
 
-The library lands in ``build/gradtts_tpu_torch/`` at the root of the
-checkout, named by a hash of the sources and flags, so an edited kernel is
-rebuilt and an unchanged one is reused. nvcc writes a temporary file that is
-renamed into place, so two processes building at once never load a half
-written library. Nothing is built when this module is imported: a kernel's
-library is built by its first launch, or by :func:`build` for all of them
-at once (one nvcc process per source, all started together).
+The library lands in ``build/gradtts_tpu_torch/`` beside the package (at
+the root of a checkout) when that can be written, else, for a read-only
+install, in ``$XDG_CACHE_HOME/gradtts_tpu_torch/`` (default ``~/.cache``);
+either way it is named by a hash of the sources and flags, so an edited
+kernel is rebuilt and an unchanged one is reused. nvcc writes a temporary
+file that is renamed into place, so two processes building at once never
+load a half written library. Nothing is built when this module is imported:
+a kernel's library is built by its first launch, or by :func:`build` for all
+of them at once (one nvcc process per source, all started together).
 """
 
 import ctypes
@@ -44,8 +46,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argtypes of every C entry point, by library
 SIGNATURES = {
     'groupnorm_mish': {
-        # x, part, B, N, C, chunk, tiles, dtype, stream
-        'gtt_gn_stats': (_P, _P, _I, _I, _I, _I, _I, _I, _P),
+        # x, part, B, N, C, chunk, tiles, groups, dtype, stream
+        'gtt_gn_stats': (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
         # x, mask, part, gamma, beta, out, B, N, T, C, chunk, tiles,
         # groups, eps, dtype, stream
         'gtt_gn_apply': (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
@@ -65,6 +67,9 @@ SIGNATURES = {
         # x, dy, wk, wv, afullt, wqkv_t, m, dctx_t, dctx, dden, dx,
         # dwkv_part, B, N, C, chunk, S, dtype, stream
         'gtt_la_bwd2': (_P,) * 12 + (_I,) * 6 + (_P,),
+        # x, dy, wq, wk, wv, afullt, afull, m, dctx, dden, dx, dwkv_part,
+        # B, N, C, chunk, S, chunk_w, S_w, stream
+        'gtt_la_bwd2_tc': (_P,) * 12 + (_I,) * 7 + (_P,),
     },
     'linear_attention_jvp': {
         # x, dx, wk, wv, dwk, dwv (NULL: no weight tangents), m, ctx, den,
@@ -93,6 +98,28 @@ def _nvcc() -> str:
                        'are built with the CUDA toolkit (set CUDA_HOME)')
 
 
+def _writable(path: str) -> bool:
+    """Whether ``path`` can be created or written: its nearest existing
+    ancestor takes new entries."""
+    while not os.path.exists(path):
+        parent = os.path.dirname(path)
+        if parent == path:
+            return False
+        path = parent
+    return os.path.isdir(path) and os.access(path, os.W_OK | os.X_OK)
+
+
+def build_dir() -> str:
+    """Where the libraries are built: :data:`BUILD_DIR` beside the package
+    when it can be written, else the per-user cache directory (as the JAX
+    package's native loader does for a read-only install)."""
+    if _writable(BUILD_DIR):
+        return BUILD_DIR
+    cache = os.environ.get('XDG_CACHE_HOME') or os.path.join(
+        os.path.expanduser('~'), '.cache')
+    return os.path.join(cache, 'gradtts_tpu_torch')
+
+
 def library_path(name: str) -> str:
     """Path of the library built from ``csrc/<name>.cu`` at its current
     sources and flags."""
@@ -101,7 +128,7 @@ def library_path(name: str) -> str:
             glob.glob(os.path.join(CSRC_DIR, '*.cuh'))):
         with open(path, 'rb') as f:
             h.update(os.path.basename(path).encode() + b'\0' + f.read())
-    return os.path.join(BUILD_DIR, f'{name}-{h.hexdigest()[:16]}.so')
+    return os.path.join(build_dir(), f'{name}-{h.hexdigest()[:16]}.so')
 
 
 def build(names=None) -> dict:
@@ -109,15 +136,16 @@ def build(names=None) -> dict:
     nvcc process per source, all at once. Returns ``{name: {'seconds': s,
     'log': nvcc's output}}`` for those it built; raises if any build fails."""
     names = list(SIGNATURES) if names is None else list(names)
-    os.makedirs(BUILD_DIR, exist_ok=True)
     jobs = {}
     for name in names:
         out = library_path(name)
         if os.path.exists(out):
             continue
-        fd, tmp = tempfile.mkstemp(suffix='.so', dir=BUILD_DIR)
+        nvcc = _nvcc()          # raises before anything is created
+        os.makedirs(os.path.dirname(out), exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix='.so', dir=os.path.dirname(out))
         os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, '-o', tmp,
+        cmd = [nvcc, *NVCC_FLAGS, '-o', tmp,
                os.path.join(CSRC_DIR, f'{name}.cu')]
         jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True),

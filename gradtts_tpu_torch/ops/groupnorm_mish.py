@@ -25,6 +25,17 @@ def mish_f32(y: torch.Tensor) -> torch.Tensor:
     return y * torch.tanh(torch.log1p(torch.exp(-y.abs())) + y.clamp_min(0))
 
 
+def mish_one_exp(y: torch.Tensor) -> torch.Tensor:
+    """Mish as the CUDA kernel computes it, with one exponential: with
+    e = exp(y) and n = e (e + 2), tanh(softplus(y)) = n / (n + 2), and
+    mish(y) = y for y > 20, where n + 2 rounds to n in f32. Used by no
+    path: the CPU tests hold it to :func:`mish_f32` and the JAX package's
+    Mish, which the plain version keeps."""
+    e = torch.exp(y.clamp_max(20.0))
+    n = e * (e + 2)
+    return torch.where(y > 20, y, y * (n / (n + 2)))
+
+
 def groupnorm_mish_plain(x, mask, gamma, beta, groups: int = 8,
                          eps: float = 1e-5):
     """Plain PyTorch version. x [B, F, T, C]; mask [B, 1, T, 1];
@@ -47,7 +58,7 @@ def _check(x, mask, gamma, beta, groups):
     B, F, T, C = x.shape
     if x.dtype not in _build.DTYPE_CODES:
         raise TypeError(f'groupnorm_mish: unsupported dtype {x.dtype}')
-    if C not in _CHANNELS or C % groups:
+    if C not in _CHANNELS or not 0 < groups <= 128 or C % groups:
         raise ValueError(f'groupnorm_mish: C={C}, groups={groups} not supported')
     if not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError('groupnorm_mish: x must be contiguous and 16-byte aligned')
@@ -64,26 +75,49 @@ def _check(x, mask, gamma, beta, groups):
             raise ValueError('groupnorm_mish: all inputs must be on one device')
 
 
-def _launch(x, mask, gamma, beta, groups, eps):
-    """The kernel's two passes on CUDA tensors, counted as one launch."""
-    _check(x, mask, gamma, beta, groups)
+def _tiling(x):
+    """(chunk, tiles): rows per block of both passes and blocks per batch
+    item, enough blocks to fill the card at batch B."""
     B, F, T, C = x.shape
     N = F * T
     rows_in_flight = _THREADS // (C * x.element_size() // 16)
     tiles = max(1, min(-(-_TARGET_BLOCKS // B), -(-N // rows_in_flight)))
     chunk = -(-N // tiles)
-    tiles = -(-N // chunk)
-    part = torch.empty((B, tiles, 2, C), dtype=torch.float32, device=x.device)
+    return chunk, -(-N // chunk)
+
+
+def _stats_pass(x, groups, chunk, tiles):
+    """Pass 1 on a CUDA tensor: per-tile f32 group sums [B, tiles, 2,
+    groups]."""
+    B, F, T, C = x.shape
+    part = torch.empty((B, tiles, 2, groups), dtype=torch.float32,
+                       device=x.device)
+    lib = _build.load('groupnorm_mish')
+    _build.check(lib, lib.gtt_gn_stats(
+        x.data_ptr(), part.data_ptr(), B, F * T, C, chunk, tiles, groups,
+        _build.DTYPE_CODES[x.dtype], _build.stream_of(x)), 'gtt_gn_stats')
+    return part
+
+
+def _apply_pass(x, mask, part, gamma, beta, groups, eps, chunk, tiles):
+    """Pass 2 on CUDA tensors: the output from pass 1's partial sums."""
+    B, F, T, C = x.shape
     out = torch.empty_like(x)
     lib = _build.load('groupnorm_mish')
-    dtype, stream = _build.DTYPE_CODES[x.dtype], _build.stream_of(x)
-    _build.check(lib, lib.gtt_gn_stats(
-        x.data_ptr(), part.data_ptr(), B, N, C, chunk, tiles, dtype, stream),
-        'gtt_gn_stats')
     _build.check(lib, lib.gtt_gn_apply(
         x.data_ptr(), mask.data_ptr(), part.data_ptr(), gamma.data_ptr(),
-        beta.data_ptr(), out.data_ptr(), B, N, T, C, chunk, tiles, groups,
-        eps, dtype, stream), 'gtt_gn_apply')
+        beta.data_ptr(), out.data_ptr(), B, F * T, T, C, chunk, tiles,
+        groups, eps, _build.DTYPE_CODES[x.dtype], _build.stream_of(x)),
+        'gtt_gn_apply')
+    return out
+
+
+def _launch(x, mask, gamma, beta, groups, eps):
+    """The kernel's two passes on CUDA tensors, counted as one launch."""
+    _check(x, mask, gamma, beta, groups)
+    chunk, tiles = _tiling(x)
+    part = _stats_pass(x, groups, chunk, tiles)
+    out = _apply_pass(x, mask, part, gamma, beta, groups, eps, chunk, tiles)
     groupnorm_mish.launches += 1
     return out
 

@@ -82,6 +82,29 @@ def bwd_split_chunk(B: int, N: int, C: int, itemsize: int, roles: int) -> int:
     return -(-N // (n_splits * _ROWS)) * _ROWS
 
 
+_SMS = 132                 # streaming multiprocessors of an H100
+_DW_ROWS = 128             # csrc/linear_attention_bwd.cu: TRW
+
+
+def bwd2_split_chunks(B: int, N: int, C: int):
+    """Rows per split of K5's two bf16 kernels (csrc/linear_attention_bwd.cu
+    ``la_bwd2_dx_kernel``, ``la_bwd2_dw_kernel``): (chunk, chunk_w). The dx
+    kernel's grid is (S, B) and its shared memory holds two blocks an SM at
+    C <= 64, one above; the dW kernel's is (S_w, B, 4 heads), two blocks an
+    SM below C 256, one at it. Each grid fills its SMs once (no second wave
+    of a few blocks), each dx split at least two 64-row tiles where N
+    allows, and each chunk is whole tiles (64 rows, 128 for dW)."""
+    def chunk_for(blocks_per_item, rows, tile):
+        n_splits = max(1, min(blocks_per_item, -(-N // rows)))
+        return -(-N // (n_splits * tile)) * tile
+
+    dx_blocks = (2 if C <= 64 else 1) * _SMS
+    dw_blocks = (2 if C < 256 else 1) * _SMS
+    return (chunk_for(dx_blocks // B, 2 * _TC_ROWS, _TC_ROWS),
+            chunk_for(dw_blocks // (B * HIDDEN // DIM_HEAD), _DW_ROWS,
+                      _DW_ROWS))
+
+
 def head_blockdiag(H: int, dim_head: int, device) -> torch.Tensor:
     """[H, H] f32 mask of the per-head diagonal blocks."""
     head = torch.arange(H, device=device) // dim_head
@@ -331,8 +354,9 @@ def attention_bwd_sweep2(x, dy, w_q, w_k, w_v, m, a_full_t, dctx, dden,
                          dim_head: int = DIM_HEAD):
     """K5. Same contract as :func:`attention_bwd_sweep2_plain`; CPU tensors
     take the plain version, CUDA tensors launch the kernel (built for
-    ``dim_head`` 32) or raise. The per-split partial sums are added up
-    here, in a fixed order."""
+    ``dim_head`` 32: in bf16 the tensor cores' dx and dW kernels, in f32
+    the CUDA cores' one) or raise. The per-split partial sums are added
+    up here, in a fixed order."""
     if x.device.type == 'cpu':
         return attention_bwd_sweep2_plain(x, dy, w_q, w_k, w_v, m, a_full_t,
                                           dctx, dden, dim_head)
@@ -346,19 +370,35 @@ def attention_bwd_sweep2(x, dy, w_q, w_k, w_v, m, a_full_t, dctx, dden,
            [((B, N, C), x.dtype)] + [((C, H), x.dtype)] * 3
            + [((B, H), f32), ((B, C, H), x.dtype), ((B, H, H), x.dtype),
               ((B, H), f32)])
-    chunk = bwd_split_chunk(B, N, C, x.element_size(), bwd_roles('sweep2', C))
-    S = -(-N // chunk)
-    wqkv_t = torch.cat([w_q, w_k, w_v], dim=1).t().contiguous()  # [3H, C]
-    dctx_t = dctx.transpose(1, 2).contiguous()
     dx = torch.empty_like(x)
-    dwkv = torch.empty((B, S, C, 2 * H), dtype=f32, device=x.device)
     lib = _build.load('linear_attention_bwd')
-    _build.check(lib, lib.gtt_la_bwd2(
-        x.data_ptr(), dy.data_ptr(), w_k.data_ptr(), w_v.data_ptr(),
-        a_full_t.data_ptr(), wqkv_t.data_ptr(), m.data_ptr(),
-        dctx_t.data_ptr(), dctx.data_ptr(), dden.data_ptr(), dx.data_ptr(),
-        dwkv.data_ptr(), B, N, C, chunk, S, _build.DTYPE_CODES[x.dtype],
-        _build.stream_of(x)), 'gtt_la_bwd2')
+    if x.dtype == torch.bfloat16:        # the tensor cores' two kernels
+        chunk, chunk_w = bwd2_split_chunks(B, N, C)
+        S, S_w = -(-N // chunk), -(-N // chunk_w)
+        # A_full [B, H, C] is read at C 256, where it does not fit in
+        # shared memory beside the weights
+        a_full = a_full_t.transpose(1, 2).contiguous() if C == 256 \
+            else a_full_t
+        dwkv = torch.empty((B, S_w, C, 2 * H), dtype=f32, device=x.device)
+        _build.check(lib, lib.gtt_la_bwd2_tc(
+            x.data_ptr(), dy.data_ptr(), w_q.data_ptr(), w_k.data_ptr(),
+            w_v.data_ptr(), a_full_t.data_ptr(), a_full.data_ptr(),
+            m.data_ptr(), dctx.data_ptr(), dden.data_ptr(), dx.data_ptr(),
+            dwkv.data_ptr(), B, N, C, chunk, S, chunk_w, S_w,
+            _build.stream_of(x)), 'gtt_la_bwd2_tc')
+    else:
+        chunk = bwd_split_chunk(B, N, C, x.element_size(),
+                                bwd_roles('sweep2', C))
+        S = -(-N // chunk)
+        wqkv_t = torch.cat([w_q, w_k, w_v], dim=1).t().contiguous()
+        dctx_t = dctx.transpose(1, 2).contiguous()
+        dwkv = torch.empty((B, S, C, 2 * H), dtype=f32, device=x.device)
+        _build.check(lib, lib.gtt_la_bwd2(
+            x.data_ptr(), dy.data_ptr(), w_k.data_ptr(), w_v.data_ptr(),
+            a_full_t.data_ptr(), wqkv_t.data_ptr(), m.data_ptr(),
+            dctx_t.data_ptr(), dctx.data_ptr(), dden.data_ptr(),
+            dx.data_ptr(), dwkv.data_ptr(), B, N, C, chunk, S,
+            _build.DTYPE_CODES[x.dtype], _build.stream_of(x)), 'gtt_la_bwd2')
     attention_bwd_sweep2.launches += 1
     dwkv = dwkv.sum(dim=(0, 1))
     return dx, dwkv[:, :H], dwkv[:, H:]

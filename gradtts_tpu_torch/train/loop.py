@@ -76,13 +76,36 @@ def batch_to(batch: dict, device) -> dict:
     return out
 
 
+def check_ported(cfg: GradTTSConfig) -> None:
+    """Raises ValueError at a training setting the port cannot honour:
+    the JAX package's remat of the estimator, its device-side mels and its
+    device mesh (``gradtts_tpu/train/loop.py:104,128-134``). One device
+    (``mesh_data`` -1 or 1, ``mesh_model`` 1) and host mels (``device_mel``
+    None or False) are what the port runs."""
+    t = cfg.train
+    for refused, what in [
+            (t.remat_estimator, 'train.remat_estimator=True (remat of the '
+                                'U-Net)'),
+            (bool(t.device_mel), 'train.device_mel=True (mels on the '
+                                 'device)'),
+            (t.mesh_data not in (-1, 1), f'train.mesh_data={t.mesh_data} '
+                                         '(data-parallel training)'),
+            (t.mesh_model != 1, f'train.mesh_model={t.mesh_model} (a model '
+                                'axis)')]:
+        if refused:
+            raise ValueError(f'{what} is not ported to gradtts_tpu_torch '
+                             'yet; use python -m gradtts_tpu.cli.train')
+
+
 def train(cfg: GradTTSConfig, n_epochs: Optional[int] = None,
           max_steps: Optional[int] = None, log_dir: Optional[str] = None,
           resume: bool = True, loader=None, device=None) -> TrainResult:
     """Trains per ``cfg`` on ``device`` (default ``cuda``) and returns the
     final step, model, optimizer and generator. ``loader`` (an iterable of
     collated batches) replaces the dataset of ``cfg``; ``max_steps`` bounds
-    the steps of this call."""
+    the steps of this call. Settings the port cannot honour raise
+    (:func:`check_ported`)."""
+    check_ported(cfg)
     log_dir = log_dir or cfg.train.log_dir
     n_epochs = n_epochs if n_epochs is not None else cfg.train.n_epochs
     device = torch.device(device or 'cuda')

@@ -180,3 +180,22 @@ def test_wrapper_takes_plain_sweeps_on_cpu():
         torch.from_numpy(dy))
     for a, t in zip(got, targs):
         np.testing.assert_array_equal(a, t.grad.numpy())
+
+
+@pytest.mark.parametrize('B,N,C', [(16, 13760, 64), (16, 3440, 128),
+                                   (16, 860, 256), (16, 860, 128),
+                                   (16, 3440, 64), (1, 1001, 64),
+                                   (8, 100, 256), (2, 64, 16)])
+def test_bwd2_split_chunks_tile_the_rows_in_one_wave(B, N, C):
+    # K5's bf16 splits: whole 64-row tiles (dx) and 128-row tiles (dW);
+    # each grid fits the card at its blocks an SM (one wave); the splits
+    # cover N with no empty split; a dx split spans two tiles where N
+    # allows
+    chunk, chunk_w = tla.bwd2_split_chunks(B, N, C)
+    assert chunk % 64 == 0 and chunk_w % 128 == 0
+    S, S_w = -(-N // chunk), -(-N // chunk_w)
+    assert (S - 1) * chunk < N and (S_w - 1) * chunk_w < N
+    assert B * S <= (2 if C <= 64 else 1) * 132 or S == 1
+    assert B * S_w * 4 <= (2 if C < 256 else 1) * 132 or S_w == 1
+    if N >= 2 * 64 * S:
+        assert chunk >= 128

@@ -230,3 +230,88 @@ def test_unet_jvp_on_gpu_matches_plain_on_cpu(cuda):
     assert tla.attention_jvp_stats.launches == launches + 6
     for g, wt in zip(*outs):
         assert float((g - wt).abs().max()) <= 1e-3 * float(wt.abs().max())
+
+
+def _bwd2_inputs(rng, cuda, B, N, C, dtype):
+    """K5's inputs as the backward hands them over: a block-diagonal dctx,
+    weights and A_full^T at the U-Net's scales."""
+    H = tla.HIDDEN
+
+    def t(shape, scale=1.0, dt=dtype):
+        return torch.tensor(rng.standard_normal(shape) * scale,
+                            device=cuda).to(dt)
+
+    x, dy = t((B, N, C), 2.0), t((B, N, C))
+    wq, wk, wv = (t((C, H), 0.5 / C ** 0.5) for _ in range(3))
+    m = (x.float() @ wk.float()).amax(dim=1)
+    a_full_t = t((B, C, H), 0.1)
+    dctx = (t((B, H, H), 0.01, torch.float32)
+            * tla.head_blockdiag(H, 32, cuda)).to(dtype)
+    dden = t((B, H), 1e-3, torch.float32)
+    return x, dy, wq, wk, wv, m, a_full_t, dctx, dden
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('C', [64, 128, 256])
+def test_bwd_sweep2_kernel_matches_plain(cuda, C, dtype):
+    # K5 alone at the training levels' channel counts: ragged row counts
+    # (the crops' 860 and 3440 rows, and 1001, odd), B 1 and 16; dx
+    # elementwise and dWk, dWv of their largest value, tolerances as in
+    # chip_smoke.py (TOL)
+    rng = np.random.default_rng(7)
+    tol = 1e-4 if dtype == torch.float32 else 2 ** -6
+    for B, N in ((16, 860), (16, 3440), (1, 1001)):
+        args = _bwd2_inputs(rng, cuda, B, N, C, dtype)
+        got = tla.attention_bwd_sweep2(*args)
+        torch.cuda.synchronize()
+        want = tla.attention_bwd_sweep2_plain(*args)
+        assert got[0].dtype == dtype and got[0].shape == (B, N, C)
+        d = (got[0].float() - want[0].float()).abs()
+        assert bool((d <= tol + tol * want[0].float().abs()).all()), \
+            float(d.max())
+        for g, w in zip(got[1:], want[1:]):
+            assert g.shape == (C, tla.HIDDEN) and g.dtype == torch.float32
+            assert float((g - w).abs().max()) <= tol * float(w.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('C', [64, 256])
+def test_bwd_sweep2_kernel_is_bitwise_repeatable(cuda, C, dtype):
+    # per-split partial sums added in a fixed order, no atomics
+    args = _bwd2_inputs(np.random.default_rng(8), cuda, 16, 3440, C, dtype)
+    first = tla.attention_bwd_sweep2(*args)
+    second = tla.attention_bwd_sweep2(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('C', tgn._CHANNELS)
+def test_groupnorm_mish_kernel_every_channel_count(cuda, C, dtype):
+    # K1 at every channel count, with a row count (F 7 x T 45 = 315) that
+    # leaves a ragged last group of rows in every block, a masked tail and
+    # values past the one-exponential Mish's v > 20 switch; tolerances as
+    # in chip_smoke.py (TOL)
+    rng = np.random.default_rng(9)
+    B, F, T = 3, 7, 45
+    mask = torch.ones((B, 1, T, 1), dtype=dtype, device=cuda)
+    mask[2, :, 30:] = 0
+    x = torch.tensor(rng.standard_normal((B, F, T, C)) * 2.0 + 0.5,
+                     device=cuda).to(dtype) * mask
+    gamma = torch.tensor(rng.standard_normal(C) * 8.0, dtype=torch.float32,
+                         device=cuda)
+    beta = torch.tensor(rng.standard_normal(C), dtype=torch.float32,
+                        device=cuda)
+    before = tgn.groupnorm_mish.launches
+    got = tgn.groupnorm_mish(x, mask, gamma, beta)
+    torch.cuda.synchronize()
+    assert tgn.groupnorm_mish.launches == before + 1
+    want = tgn.groupnorm_mish_plain(x, mask, gamma, beta)
+    tol = 1e-4 if dtype == torch.float32 else 2 ** -7
+    d = (got.float() - want.float()).abs()
+    assert bool((d <= tol + tol * want.float().abs()).all()), float(d.max())
+    assert float(got[2, :, 30:].float().abs().max()) == 0.0

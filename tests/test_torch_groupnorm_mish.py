@@ -131,3 +131,66 @@ def test_grads_match_jax_vjp_of_reference(shape):
         np.testing.assert_allclose(t.grad.numpy(), w, rtol=0,
                                    atol=1e-5 * np.abs(w).max())
     assert args[1].grad is None
+
+
+@pytest.fixture
+def one_thread():
+    # one intra-op thread: the grid is elementwise, and torch's CPU exp
+    # must not depend on how the grid is cut into chunks
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _mish_grid():
+    # -1e4..1e4 in steps of 0.1 (0 and +-20 included), the region around
+    # the kernel's v > 20 switch, and the exponential's overflow (v > 88.7)
+    # and underflow (v < -87.3, outputs below the normal range)
+    g = np.concatenate([np.linspace(-1e4, 1e4, 200001),
+                        np.linspace(-110.0, 30.0, 140001),
+                        [0.0, 20.0, -20.0, 88.7, 88.8, 1e4, -1e4],
+                        np.nextafter(np.float32(20), np.float32([0, 40]))])
+    return g.astype(np.float32)
+
+
+def test_one_exponential_mish_matches_softplus_mish(one_thread):
+    # csrc/groupnorm_mish.cu computes Mish as v n / (n + 2), n = e (e + 2),
+    # e = exp(v); its CPU mirror against the plain version's softplus form
+    # and the JAX package's _mish_f32: within 1e-6 relative in f32 where
+    # exp(v) is a normal f32 (v > -87); below that the intermediates are
+    # subnormal (or flushed to zero, as JAX sets the CPU to do), and both
+    # forms must only stay under |v| exp(v) <= 87 exp(-87) < 2e-36
+    y = _mish_grid()
+    got = tgn.mish_one_exp(torch.from_numpy(y))
+    normal = torch.from_numpy(y > -87.0)
+    for want in (tgn.mish_f32(torch.from_numpy(y)),
+                 torch.from_numpy(np.asarray(jgn._mish_f32(jnp.asarray(y))))):
+        d = (got - want).abs()[normal]
+        w = want.abs()[normal]
+        assert bool((d <= 1e-6 * w).all()), float((d / w).max())
+        assert float(want[~normal].abs().max()) < 2e-36
+    assert float(got[~normal].abs().max()) < 2e-36
+    assert bool(torch.isfinite(got).all())
+    assert float(got[y == 0].abs().max()) == 0.0
+    big = torch.from_numpy(y > 20)
+    assert torch.equal(got[big], torch.from_numpy(y)[big])
+
+
+def test_one_exponential_mish_rounds_to_bf16_as_softplus_mish(one_thread):
+    # in bf16 the two forms round to the same value, except where the f32
+    # values lie within their 1e-6 of a rounding midpoint: there the two
+    # roundings are neighbours and the midpoint lies between the f32 values
+    y = _mish_grid()
+    a = tgn.mish_one_exp(torch.from_numpy(y))
+    b = tgn.mish_f32(torch.from_numpy(y))
+    ab, bb = a.bfloat16(), b.bfloat16()
+    diff = ab != bb
+    lo = torch.minimum(ab.float(), bb.float())[diff]
+    hi = torch.maximum(ab.float(), bb.float())[diff]
+    assert bool((torch.nextafter(lo.bfloat16(), hi.bfloat16()) == hi.bfloat16())
+                .all())
+    mid = (lo.double() + hi.double()) / 2
+    fa, fb = a[diff].double(), b[diff].double()
+    assert bool((((fa - mid) * (fb - mid)) <= 0).all())
+    assert int(diff.sum()) <= 1e-3 * len(y)
