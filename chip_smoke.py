@@ -9,20 +9,23 @@ Phases, each printing one JSON line:
               per source, all at once), report nvcc's register report and
               count the tensor-core instructions (HMMA, HGMMA) of each
               entry function in the built SASS (cuobjdump), requiring some
-              in every bf16 K2, K3 and K5 entry and every bf16 K6 and K7
-              entry without weight tangents, and no spills in the K5, K6
-              and K7 ones; and K1's longest SASS loop per entry (its
-              instructions, MUFU and FP32 counts);
+              in every bf16 K2, K3, K4 and K5 entry and every bf16 K6 and
+              K7 entry without weight tangents, and no spills in the K4,
+              K5, K6 and K7 ones; K1's longest SASS loop per entry (its
+              instructions, MUFU and FP32 counts) and the frame loop of
+              the one-warp MAS DP;
   2. kernels  hold every kernel against its plain PyTorch version at each
               shape its path gives it, in f32 and bf16, and time kernel and
-              plain version in bf16 (K1's two passes also apart, K5 run
-              twice for the same bits): K1-K3 at the synthesis shapes (B 8,
-              768 frames) and the training shapes (B 16, 172-frame crops,
-              ragged row tiles) and the likelihood shapes (B 8, 512
-              frames), K4 and K5 at the training shapes, K6 and K7 (with
-              and without weight tangents) at the likelihood shapes and,
+              plain version in bf16 (K1's two passes also apart, K4 and K5
+              run twice for the same bits): K1-K3 at the synthesis shapes
+              (B 8, 768 frames) and the training shapes (B 16, 172-frame
+              crops, ragged row tiles) and the likelihood shapes (B 8, 512
+              frames), K4 and K5 at the training shapes (K4 also, untimed,
+              at every channel count and a ragged N), K6 and K7 (with and
+              without weight tangents) at the likelihood shapes and,
               untimed, the training shapes, MAS at [16, 384, 1024] and
-              [8, 128, 512];
+              [8, 128, 512] and, untimed, at [4, 512, 2048], a Tx that is
+              not a multiple of 32 and a Tx above 512 (the block route);
   3. slice    a full-width ljspeech GradTTS with every weight drawn from a
               seed: 10-step synthesis (B 2, Tx 64, Ty 256, f32) on the GPU
               against the same on the CPU (plain versions);
@@ -90,6 +93,10 @@ LIK_LEVELS = [((80, 512, 64), 5, 1), ((40, 256, 128), 4, 1),
               ((20, 128, 256), 8, 2), ((20, 128, 128), 4, 1),
               ((40, 256, 64), 4, 1)]
 LIK_MAS_SHAPE = (LIK_B, LIK_TX, LIK_TY)
+# MAS checked untimed: the largest buckets (512 tokens, 2048 frames), a Tx
+# that is not a multiple of 32 (and a Ty not one of 4), and a Tx above 512,
+# which takes the block-wide route
+MAS_UNTIMED = ((4, 512, 2048), (3, 200, 701), (2, 600, 1400))
 # Tolerances of |kernel - plain|, per dtype. Per-row outputs, elementwise
 # |d| <= tol + tol * |plain|: f32 sums in other orders over up to 491520
 # values, ~1e-6 relative, 1e-4 leaves margin; bf16 outputs round the same
@@ -97,7 +104,9 @@ LIK_MAS_SHAPE = (LIK_B, LIK_TX, LIK_TY)
 # two bf16 ulps. The backward's batch-wide sums (dA, dWq, db, dg, dWk, dWv,
 # all f32), |d| <= tol * max |plain|: sums of up to 220160 rows in other
 # orders (f32), and the rare bf16 rounding of an intermediate that lands on
-# the other side of a boundary (bf16). MAS is bit-exact.
+# the other side of a boundary (bf16). K4's dA in bf16 has no rounded
+# intermediate (q stays f32, as bf16 hi + lo parts; dy is exact in bf16):
+# TOL_K4_DA. MAS is bit-exact.
 TOL = {
     'groupnorm_mish': {'float32': 1e-4, 'bfloat16': 2 ** -7},
     'attention_stats': {'float32': 1e-4, 'bfloat16': 1e-4},   # f32 outputs
@@ -110,6 +119,7 @@ TOL = {
     'attention_jvp_apply': {'float32': 1e-4, 'bfloat16': 2 ** -6},
     'maximum_path': {'float32': 0.0},
 }
+TOL_K4_DA = {'float32': 1e-4, 'bfloat16': 2 ** -12}
 KERNELS = list(TOL)
 # weights drawn as std gain/sqrt(fan_in): a random score does not pull x_t
 # back to mu, so the Euler steps grow x_t - mu ~150-fold, and the linear
@@ -185,8 +195,10 @@ def _entry_name(mangled):
     if m:
         return (f"{m[1]}<{'f32' if m[2] == 'f' else 'bf16'},{m[3]}"
                 f"{',dW' if m[4] == '1' else ''}>")
-    plain = re.search(r'(mas)_kernel', mangled)
-    return plain[1] if plain else mangled
+    plain = re.search(r'(mas(?:_dp|_path)?)_kernel(?:ILi(\d+)E)?', mangled)
+    if plain:
+        return f'{plain[1]}<{plain[2]}>' if plain[2] else plain[1]
+    return mangled
 
 
 def _sass(path):
@@ -238,6 +250,21 @@ def sass_loops(path):
     return out
 
 
+def sass_loop_with(path, entry, opcode):
+    """The innermost loop of ``entry`` in the library at ``path`` that holds
+    an instruction matching ``opcode``: its instruction count, or None."""
+    ins = _sass(path).get(entry, [])
+    best = None
+    for addr, op in ins:
+        m = re.search(r'\bBRA\b.*?0x([0-9a-f]+)', op)
+        if m and int(m[1], 16) < addr:
+            body = [o for a, o in ins if int(m[1], 16) <= a <= addr]
+            if any(re.search(opcode, o) for o in body) and (
+                    best is None or len(body) < best):
+                best = len(body)
+    return best
+
+
 def phase_build():
     from gradtts_tpu_torch.ops import _build
     from gradtts_tpu_torch.ops import linear_attention as la
@@ -259,21 +286,27 @@ def phase_build():
            **_tensor_core_counts('linear_attention_jvp')}
     # K2, K3, K5 and the variants of K6 and K7 without weight tangents (the
     # Hutchinson probe's) run their bf16 products on the tensor cores
-    tc = [f'{k}<bf16,{c}>' for k in ('la_stats', 'la_apply', 'la_bwd2_dx',
-                                      'la_bwd2_dw', 'la_jvp_stats',
-                                      'la_jvp_apply') for c in la._CHANNELS]
+    tc = [f'{k}<bf16,{c}>' for k in ('la_stats', 'la_apply', 'la_bwd1_tc',
+                                      'la_bwd2_dx', 'la_bwd2_dw',
+                                      'la_jvp_stats', 'la_jvp_apply')
+          for c in la._CHANNELS]
     emit({'phase': 'build', 'seconds': time.perf_counter() - t0,
           'per_source_seconds': {n: r['seconds'] for n, r in report.items()},
           'flags': ' '.join(_build.NVCC_FLAGS), 'ptxas': ptxas,
           'tensor_core_instructions': mma,
           'tensor_core_ptxas': {fn: ptxas.get(fn) for fn in tc},
           'groupnorm_mish_loops': sass_loops(
-              _build.library_path('groupnorm_mish'))})
+              _build.library_path('groupnorm_mish')),
+          'mas_ptxas': {fn: r for fn, r in ptxas.items()
+                        if fn.startswith('mas')},
+          'mas_dp_frame_loop_instructions': {
+              k: sass_loop_with(_build.library_path('mas'), f'mas_dp<{k}>',
+                                r'SHFL\.UP') for k in (4, 8, 12, 16)}})
     for fn in tc:
         require(mma.get(fn, 0) > 0, f'build: {fn} has no HMMA or HGMMA '
                                     f'instruction ({mma.get(fn)})')
         # (nvcc reports only what this call built)
-        if fn.startswith(('la_jvp', 'la_bwd2')) and fn in ptxas:
+        if fn.startswith(('la_jvp', 'la_bwd1', 'la_bwd2')) and fn in ptxas:
             require(ptxas[fn].endswith(' 0 bytes spill stores'),
                     f'build: {fn} spills ({ptxas[fn]})')
 
@@ -441,8 +474,8 @@ def phase_kernels(device):
                             xr, dy, wq, wk, wv, m_p, a_full_t, dctx, dden),
                         lambda: la.attention_bwd_sweep2_plain(
                             xr, dy, wq, wk, wv, m_p, a_full_t, dctx, dden))
-                    pairs['attention_bwd_sweep1'] = lambda got, want: [
-                        (a, b, True) for a, b in zip(got, want)]
+                    pairs['attention_bwd_sweep1'] = (
+                        lambda got, want: _sweep1_pairs(got, want, dn))
                     pairs['attention_bwd_sweep2'] = lambda got, want: [
                         (got[0], want[0], False)] + [
                         (a, b, True) for a, b in zip(got[1:], want[1:])]
@@ -513,16 +546,20 @@ def phase_kernels(device):
                     got = fn()
                     torch.cuda.synchronize()
                     tol = TOL[name][dn]
-                    errs = [_err(a, b, tol, r)
+                    errs = [_err(a, b, *((r, True) if isinstance(r, float)
+                                         else (tol, r)))
                             for a, b, r in pairs[name](got, plain())]
                     err = max(e for e, _ in errs)
                     ok = all(o for _, o in errs)
                     line[name] = {'max_abs_err': err, 'tol': tol, 'ok': ok}
+                    if name == 'attention_bwd_sweep1':
+                        line[name]['dA_tol'] = TOL_K4_DA[dn]
                     st = stats[name]
                     st['max_abs_err'] = max(st['max_abs_err'], err)
                     require(ok, f'{name} {dn} {(bsz, F, T, C)}: max abs err '
                                 f'{err} over tolerance {tol}')
-                    if name == 'attention_bwd_sweep2':
+                    if name in ('attention_bwd_sweep1',
+                                'attention_bwd_sweep2'):
                         # per-split partials summed in a fixed order, no
                         # atomics: a second run gives the same bits
                         again = fn()
@@ -568,10 +605,21 @@ def phase_kernels(device):
                             f'K7 y and K3 output differ by {diff} {dn} '
                             f'{(bsz, F, T, C)}')
                 emit(line)
+    _kernel_k4_channels(device, rng, stats['attention_bwd_sweep1'])
     _kernel_mas(device, rng, stats['maximum_path'], 'train', MAS_SHAPE)
     _kernel_mas(device, rng, stats['maximum_path'], 'likelihood',
                 LIK_MAS_SHAPE)
+    for shape in MAS_UNTIMED:
+        _kernel_mas(device, rng, stats['maximum_path'], None, shape)
     return stats
+
+
+def _sweep1_pairs(got, want, dn):
+    """K4's outputs in dtype ``dn``: dA against TOL_K4_DA of its largest
+    value, dWq, db and dg against the kernel's TOL of theirs (a float in
+    place of the flag is a tolerance of the largest value)."""
+    return [(got[0], want[0], TOL_K4_DA[dn])] + [
+        (a, b, True) for a, b in zip(got[1:], want[1:])]
 
 
 def _gn_passes(x, mask, gamma, beta):
@@ -592,10 +640,66 @@ def _gn_passes(x, mask, gamma, beta):
             'apply_device_ms': device_ms(apply), 'tiles': tiles}
 
 
+def _kernel_k4_channels(device, rng, st):
+    """K4 at every channel count (the U-Net's levels use 64, 128 and 256),
+    B 4 and a ragged N of 1001 rows, f32 and bf16, untimed: within
+    tolerance of its plain version (dA within TOL_K4_DA), the same bits
+    twice."""
+    import torch
+    from gradtts_tpu_torch.ops import linear_attention as la
+    B, N, H = 4, 1001, la.HIDDEN
+    line = {'phase': 'kernels', 'path': None, 'shape': [B, N],
+            'attention_bwd_sweep1': {}}
+    for C in la._CHANNELS:
+        for dtype in (torch.float32, torch.bfloat16):
+            dn = str(dtype).split('.')[1]
+
+            def t(shape, scale=1.0, dt=dtype):
+                return torch.tensor(rng.standard_normal(shape) * scale,
+                                    dtype=torch.float32,
+                                    device=device).to(dt)
+
+            args = (t((B, N, C), 2.0), t((B, N, C)),
+                    t((C, H), 0.5 / math.sqrt(C)), t((B, C, H), 0.1),
+                    t((B, H, C), 0.1), t((C,), 0.1, torch.float32))
+            got = la.attention_bwd_sweep1(*args)
+            again = la.attention_bwd_sweep1(*args)
+            torch.cuda.synchronize()
+            want = la.attention_bwd_sweep1_plain(*args)
+            errs = [_err(a, b, *((r, True) if isinstance(r, float)
+                                 else (TOL['attention_bwd_sweep1'][dn], r)))
+                    for a, b, r in _sweep1_pairs(got, want, dn)]
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            err = max(e for e, _ in errs)
+            line['attention_bwd_sweep1'][f'{dn},{C}'] = {
+                'max_abs_err': err, 'ok': all(o for _, o in errs),
+                'bitwise_repeatable': same}
+            st['max_abs_err'] = max(st['max_abs_err'], err)
+            require(all(o for _, o in errs), f'attention_bwd_sweep1 {dn} '
+                    f'{(B, N, C)}: max abs err {err} over tolerance')
+            require(same, f'attention_bwd_sweep1 {dn} {(B, N, C)}: two runs '
+                          'differ')
+    emit(line)
+
+
+def _sm_clock_mhz():
+    """The card's maximum SM clock (nvidia-smi), MHz."""
+    smi = subprocess.run(['nvidia-smi', '--query-gpu=clocks.max.sm',
+                          '--format=csv,noheader,nounits'],
+                         capture_output=True, text=True, timeout=60)
+    require(smi.returncode == 0, 'nvidia-smi gave no SM clock')
+    return float(smi.stdout.split()[0])
+
+
 def _kernel_mas(device, rng, st, path, shape):
-    """MAS at ``shape`` [B, Tx, Ty]: bit-exact against its plain version."""
+    """MAS at ``shape`` [B, Tx, Ty]: bit-exact against its plain version;
+    timed where ``path`` names the path whose shape it is. The one-warp
+    route's chain estimate: its frames (the largest t_y) times the
+    instructions of its SASS frame loop at the card's maximum SM clock, one
+    instruction a cycle (an estimate, not a bound)."""
     import numpy as np
     import torch
+    from gradtts_tpu_torch.ops import _build
     from gradtts_tpu_torch.ops import mas
     bsz, tx, ty = shape
     t_x = rng.integers(tx // 2, tx + 1, bsz)
@@ -610,19 +714,29 @@ def _kernel_mas(device, rng, st, path, shape):
     torch.cuda.synchronize()
     want = mas.maximum_path_plain(value, mask)
     err = float((got - want).abs().max())
+    route, K = mas.mas_route(tx, ty)
     line = {'phase': 'kernels', 'path': path, 'shape': list(shape),
             'dtype': 'float32',
             'maximum_path': {'max_abs_err': err, 'tol': 0.0,
                              'exact': bool(torch.equal(got, want)),
-                             'path_cells': int(want.sum())}}
-    require(torch.equal(got, want), f'maximum_path: kernel and plain paths '
-                                    f'differ (max abs err {err})')
+                             'path_cells': int(want.sum()), 'route': route,
+                             'cells_a_lane': K}}
+    require(torch.equal(got, want), f'maximum_path {shape}: kernel and plain '
+                                    f'paths differ (max abs err {err})')
     st['max_abs_err'] = max(st['max_abs_err'], err)
-    cells = bsz * tx * ty
-    _timed(st.setdefault(path, _stat()), 1,
-           lambda: mas.maximum_path(value, mask),
-           lambda: mas.maximum_path_plain(value, mask), 3 * cells * 4,
-           4 * int((mask != 0).sum()), 'float32', line['maximum_path'])
+    if path is not None:
+        cells = bsz * tx * ty
+        _timed(st.setdefault(path, _stat()), 1,
+               lambda: mas.maximum_path(value, mask),
+               lambda: mas.maximum_path_plain(value, mask), 3 * cells * 4,
+               4 * int((mask != 0).sum()), 'float32', line['maximum_path'])
+        if route == 'register':
+            loop = sass_loop_with(_build.library_path('mas'),
+                                  f'mas_dp<{K}>', r'SHFL\.UP')
+            est = int(t_y.max()) * loop / (_sm_clock_mhz() * 1e3)
+            line['maximum_path'].update(frame_loop_instructions=loop,
+                                        chain_estimate_ms=est)
+            st[path]['chain_estimate_ms'] = est
     emit(line)
 
 
@@ -1322,7 +1436,8 @@ def phase_adaptive(device, ckpt):
 HAND_KERNELS = ('gn_stats_kernel', 'gn_apply_kernel', 'la_stats_kernel',
                 'la_apply_kernel', 'la_bwd1_kernel', 'la_bwd2_kernel',
                 'la_bwd2_dx_kernel', 'la_bwd2_dw_kernel',
-                'la_jvp_stats_kernel', 'la_jvp_apply_kernel', 'mas_kernel')
+                'la_jvp_stats_kernel', 'la_jvp_apply_kernel', 'mas_kernel',
+                'la_bwd1_tc_kernel', 'mas_dp_kernel', 'mas_path_kernel')
 
 
 def _family(name):
@@ -1453,6 +1568,8 @@ def main():
             'bound_by': 'bytes' if sums['bytes_ms'] >= sums['ops_ms']
             else 'operations',
             'library_ms': None,
+            **({'chain_estimate_ms': sums['chain_estimate_ms']}
+               if 'chain_estimate_ms' in sums else {}),
             'launches_per_path': {p: c[name] for p, c in counts.items()},
             'per': PER[path] if name != 'maximum_path'
             else 'one call at [16, 384, 1024], f32'})

@@ -58,7 +58,24 @@
 //     split over its warps, and writes them once, as its split's partial.
 //     Splitting the dW columns by head keeps the accumulators at C / 4 a
 //     thread or fewer.
-// K4, and K5 in f32 (the parity route; TF32 is off), keep the CUDA-core
+// K4 in bf16 (the training path's): one kernel on the tensor cores,
+// la_bwd1_tc_kernel, grid (S, B, 4 heads), 8 warps. Every product of the
+// sweep separates by head with no recompute: q_h = x Wq[:, h], dq_h = dy
+// A_full^T[:, h], dA's rows of head h are q_h^T dy and dWq's columns of
+// head h are x^T dq_h. So a block keeps its head's Wq and A_full^T columns
+// ([C, 32] each) in shared memory and streams x and dy through a cp.async
+// ring of 128-row (C <= 64) or 64-row tiles. Each warp projects 16 rows
+// (q or dq) and hands them to bf16 exchange tiles; dA needs q in f32, so q
+// goes as hi = round(q) and lo = round(q - hi) (hi + lo = q to ~2^-17 of
+// it; dy is exact in bf16) and dA = hi^T dy + lo^T dy. The block then adds
+// hi^T dy, lo^T dy and dq^T x over the tile's rows. dgv needs no o = round
+// (q) A_pre product: summed over the rows, dy * o reassociates to
+// sum_h A_pre[h, c] (round(q)^T dy)[h, c], which the epilogue forms from
+// the hi^T dy sums; db comes from the dy fragments of the head-0 blocks.
+// That is 5 C H multiply-adds a row, the function's own count. A thread
+// holds 48 (C <= 128) or 96 (C 256) f32 accumulators for the three sums.
+// Each block writes f32 partials; the wrapper adds them in a fixed order.
+// K4 and K5 in f32 (the parity route; TF32 is off) keep the CUDA-core
 // design: a grid of (S splits, B, roles) blocks each walks its chunk in
 // tiles of R rows; the accumulators live in registers, at most 64 per
 // thread, so a block owns one slice of them (its role) and recomputes the
@@ -979,6 +996,254 @@ la_bwd2_dw_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wk,
       }
 }
 
+// ---- K4 in bf16: tensor cores -----------------------------------------------
+
+// K4's layout at channel count C: head hd's columns of Wq and A_full^T
+// ([C, 32] each), a two-stage ring of x and dy tiles of TR rows, and three
+// [TR, 32] bf16 exchange tiles: hi = round(q), lo = round(q - hi) and
+// round(dq). The block's three sums hi^T dy, lo^T dy and dq^T x (dWq_hd
+// transposed) are [32, C] each; their C / 8 column tiles go NT to a warp
+// over WN warps, and where that leaves warps over, the WK warps of a column
+// group take every WK-th 16-row k-step of each tile and add their partials
+// once, at the end, in shared memory (over the ring, free by then).
+template <int C>
+struct Bwd1Tc {
+  static constexpr int TR = C <= 64 ? 128 : 64;
+  static constexpr int WARPS = 8;
+  static constexpr int NT = C == 256 ? 4 : 2;   // column tiles of a warp
+  static constexpr int WN = C / 8 / NT;
+  static constexpr int WK = WARPS / WN;
+  static constexpr int STAGES = 2;
+  static constexpr int RS = C + 1;              // row stride of the f32 sums
+  using XT = gtt::RowTile<C>;
+  using HT = gtt::RowTile<DH>;
+  __host__ __device__ static constexpr size_t ring() {
+    return STAGES * 2 * (size_t)XT::bytes(TR);
+  }
+  __host__ __device__ static constexpr size_t sums() {
+    return (size_t)WK * (3 * DH * RS + C) * sizeof(float);
+  }
+  __host__ __device__ static constexpr size_t smem() {
+    return 2 * (size_t)HT::bytes(C) + 3 * (size_t)HT::bytes(TR) +
+           (ring() > sums() ? ring() : sums());
+  }
+  static_assert(WN * WK == WARPS && (TR / 16) % WK == 0 && NT % 2 == 0, "K4: warp layout");
+};
+
+// p = the warp's 16 rows of the [*, C] tile at (tile, arow) times the
+// [C, 32] head slice w_s (A by ldmatrix, B by ldmatrix.trans), f32.
+template <int C>
+__device__ __forceinline__ void project_head(unsigned char* tile, int arow, unsigned char* w_s,
+                                             int lane, float (&p)[4][4]) {
+  using XT = gtt::RowTile<C>;
+  using HT = gtt::RowTile<DH>;
+  zero(p);
+#pragma unroll 4
+  for (int ks = 0; ks < C / 16; ++ks) {
+    uint32_t a[4];
+    gtt::ldmatrix_x4(a, XT::at(tile, arow, 2 * ks + lane / 16));
+#pragma unroll
+    for (int np = 0; np < 2; ++np) {
+      uint32_t w[4];
+      gtt::ldmatrix_x4_trans(w, HT::at(w_s, 16 * ks + lane % 16, 2 * np + lane / 16));
+      gtt::mma_bf16_16816(p[2 * np], a, w[0], w[1]);
+      gtt::mma_bf16_16816(p[2 * np + 1], a, w[2], w[3]);
+    }
+  }
+}
+
+// K4, bf16. grid (S, B, NH): block (s, b, hd) sums head hd's share of the
+// sweep over its rows. Per tile, phase 1: each warp projects 16 rows of x
+// onto the head's Wq columns (q, kept f32 as hi + lo) or of dy onto its
+// A_full^T columns (dq, rounded), into the exchange tiles; phase 2: the
+// block adds hi^T dy, lo^T dy and dq^T x over the tile's rows (A from the
+// exchange tiles, B from the dy and x tiles, both by ldmatrix.trans), and
+// the head-0 blocks the column sums of dy (db) from the dy fragments.
+// Epilogue: dA_hd = hi^T dy + lo^T dy; dWq_hd; dgv's share of the head,
+// sum_h A_pre[h, c] (hi^T dy)[h, c] (the sum over rows of dy * round(q)
+// A_pre, reassociated), plus b_out db in head 0; all as f32 partials.
+template <int C>
+__global__ void __launch_bounds__(Bwd1Tc<C>::WARPS * 32, C <= 128 ? 2 : 1)
+la_bwd1_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
+                  const bf16* __restrict__ wq, const bf16* __restrict__ afullt,
+                  const bf16* __restrict__ apre, const float* __restrict__ bout,
+                  float* __restrict__ da_part, float* __restrict__ dwq_part,
+                  float* __restrict__ db_part, float* __restrict__ dgv_part, int N, int chunk,
+                  int S) {
+  using L = Bwd1Tc<C>;
+  using XT = typename L::XT;
+  using HT = typename L::HT;
+  constexpr int TR = L::TR, NT = L::NT, WK = L::WK, STAGES = L::STAGES, RS = L::RS;
+  constexpr int RB = TR / 16;  // row blocks of a tile
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* wq_s = smem_raw;              // Wq[:, head] [C, 32]
+  unsigned char* af_s = wq_s + HT::bytes(C);   // A_full^T[:, head] [C, 32]
+  unsigned char* hi_s = af_s + HT::bytes(C);   // round(q) [TR, 32]
+  unsigned char* lo_s = hi_s + HT::bytes(TR);  // round(q - round(q))
+  unsigned char* dq_s = lo_s + HT::bytes(TR);  // round(dq)
+  unsigned char* ring = dq_s + HT::bytes(TR);  // {x, dy} [TR, C] per stage
+  float* sums = reinterpret_cast<float*>(ring);  // after the loop: [WK][3][32][RS]
+  float* db_sums = sums + WK * 3 * DH * RS;      // and [WK][C]
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, q = lane % 4;
+  const int wn = warp % L::WN, wk = warp / L::WN;
+  const int s = blockIdx.x, b = blockIdx.y, hd = blockIdx.z;
+  const int row_begin = s * chunk;
+  const int row_end = min(N, row_begin + chunk);
+  const int n_tiles = (row_end - row_begin + TR - 1) / TR;
+  x += (size_t)b * N * C;
+  dy += (size_t)b * N * C;
+  afullt += (size_t)b * C * H;
+  apre += ((size_t)b * H + hd * DH) * C;
+
+  auto load_xdy = [&](int t) {
+    if (t < n_tiles) {
+      const int r0 = row_begin + t * TR;
+      const int valid = min(TR, row_end - r0);
+      unsigned char* slot = ring + (t % STAGES) * 2 * XT::bytes(TR);
+      gtt::load_tile_async<C>(x + (size_t)r0 * C, TR, valid, slot);
+      gtt::load_tile_async<C>(dy + (size_t)r0 * C, TR, valid, slot + XT::bytes(TR));
+    }
+    gtt::cp_async_commit();
+  };
+  gtt::load_tile_async<DH>(wq + hd * DH, C, C, wq_s, H);
+  gtt::load_tile_async<DH>(afullt + hd * DH, C, C, af_s, H);
+  for (int t = 0; t < STAGES - 1; ++t) load_xdy(t);
+
+  float acc[3][2][NT][4];  // [hi^T dy, lo^T dy, dq^T x][m tile][column tile]
+  float dbp[NT];           // this lane's rows of column 8 (wn NT + j) + g of dy
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    dbp[j] = 0.f;
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+#pragma unroll
+      for (int md = 0; md < 2; ++md)
+#pragma unroll
+        for (int src = 0; src < 3; ++src) acc[src][md][j][e] = 0.f;
+  }
+
+  for (int t = 0; t < n_tiles; ++t) {
+    load_xdy(t + STAGES - 1);
+    gtt::cp_async_wait<STAGES - 1>();
+    __syncthreads();
+    unsigned char* xt = ring + (t % STAGES) * 2 * XT::bytes(TR);
+    unsigned char* dyt = xt + XT::bytes(TR);
+    // phase 1: job < RB projects x (q), else dy (dq), rows 16 (job % RB)..;
+    // zero-filled rows past the split give q = dq = 0
+#pragma unroll 1
+    for (int job = warp; job < 2 * RB; job += L::WARPS) {
+      const int r_w = 16 * (job % RB);
+      const bool is_q = job < RB;
+      float p[4][4];
+      project_head<C>(is_q ? xt : dyt, r_w + lane % 16, is_q ? wq_s : af_s, lane, p);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int h2 = 0; h2 < 2; ++h2) {
+          const int r = r_w + g + 8 * h2;
+          if (is_q) {
+            gtt::store_split(HT::at(hi_s, r, j) + 4 * q, HT::at(lo_s, r, j) + 4 * q,
+                             p[j][2 * h2], p[j][2 * h2 + 1]);
+          } else {
+            *reinterpret_cast<uint32_t*>(HT::at(dq_s, r, j) + 4 * q) =
+                gtt::pack_bf16x2(p[j][2 * h2], p[j][2 * h2 + 1]);
+          }
+        }
+    }
+    __syncthreads();
+    // phase 2: A[h][r] = exchange[r][h], B[r][c] = dy or x [r][c]
+#pragma unroll 1
+    for (int ks = wk; ks < RB; ks += WK) {
+      uint32_t a[3][2][4];
+#pragma unroll
+      for (int md = 0; md < 2; ++md) {
+        const int r = 16 * ks + lane % 8 + 8 * (lane / 16), c = 2 * md + (lane / 8) % 2;
+        gtt::ldmatrix_x4_trans(a[0][md], HT::at(hi_s, r, c));
+        gtt::ldmatrix_x4_trans(a[1][md], HT::at(lo_s, r, c));
+        gtt::ldmatrix_x4_trans(a[2][md], HT::at(dq_s, r, c));
+      }
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        const int c8 = wn * NT + 2 * np;
+        uint32_t bd[4], bx[4];
+        gtt::ldmatrix_x4_trans(bd, XT::at(dyt, 16 * ks + lane % 16, c8 + lane / 16));
+        gtt::ldmatrix_x4_trans(bx, XT::at(xt, 16 * ks + lane % 16, c8 + lane / 16));
+#pragma unroll
+        for (int n2 = 0; n2 < 2; ++n2) {
+          const int j = 2 * np + n2;
+#pragma unroll
+          for (int md = 0; md < 2; ++md) {
+            gtt::mma_bf16_16816(acc[0][md][j], a[0][md], bd[2 * n2], bd[2 * n2 + 1]);
+            gtt::mma_bf16_16816(acc[1][md][j], a[1][md], bd[2 * n2], bd[2 * n2 + 1]);
+            gtt::mma_bf16_16816(acc[2][md][j], a[2][md], bx[2 * n2], bx[2 * n2 + 1]);
+          }
+          if (hd == 0) {
+#pragma unroll
+            for (int u = 0; u < 2; ++u) {  // bf16 -> f32 is a 16-bit shift
+              const uint32_t w = bd[2 * n2 + u];
+              dbp[j] += __uint_as_float(w << 16) + __uint_as_float(w & 0xffff0000u);
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();  // the ring slot and the exchange tiles are free
+  }
+
+  // the WK partials into shared memory, then added in a fixed order
+  float* mine = sums + wk * 3 * DH * RS;
+#pragma unroll
+  for (int src = 0; src < 3; ++src)
+#pragma unroll
+    for (int md = 0; md < 2; ++md)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = 16 * md + g + 8 * (e >> 1), c = 8 * (wn * NT + j) + 2 * q + (e & 1);
+          mine[(src * DH + h) * RS + c] = acc[src][md][j][e];
+        }
+  if (hd == 0) {
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      float v = dbp[j];
+      v += __shfl_xor_sync(0xffffffffu, v, 1);
+      v += __shfl_xor_sync(0xffffffffu, v, 2);
+      if (q == 0) db_sums[wk * C + 8 * (wn * NT + j) + g] = v;
+    }
+  }
+  __syncthreads();
+  auto total = [&](int src, int h, int c) {
+    float v = 0.f;
+#pragma unroll
+    for (int w = 0; w < WK; ++w) v += sums[((w * 3 + src) * DH + h) * RS + c];
+    return v;
+  };
+  const size_t bs = (size_t)b * S + s;
+  for (int i = threadIdx.x; i < DH * C; i += blockDim.x) {
+    const int h = i / C, c = i % C;
+    da_part[(bs * H + hd * DH + h) * C + c] = total(0, h, c) + total(1, h, c);
+  }
+  for (int i = threadIdx.x; i < DH * C; i += blockDim.x) {
+    const int c = i / DH, h = i % DH;
+    dwq_part[(bs * C + c) * H + hd * DH + h] = total(2, h, c);
+  }
+  for (int c = threadIdx.x; c < C; c += blockDim.x) {
+    float dg = 0.f;
+    for (int h = 0; h < DH; ++h) dg = fmaf(__bfloat162float(apre[h * C + c]), total(0, h, c), dg);
+    if (hd == 0) {
+      float db = 0.f;
+#pragma unroll
+      for (int w = 0; w < WK; ++w) db += db_sums[w * C + c];
+      db_part[bs * C + c] = db;
+      dg = fmaf(bout[c], db, dg);
+    }
+    dgv_part[(bs * NH + hd) * C + c] = dg;
+  }
+}
+
 template <typename T, int C>
 cudaError_t launch_bwd1(const void* x, const void* dy, const void* wq, const void* afullt,
                         const void* apre, const void* bout, void* da_part, void* dwq_part,
@@ -993,6 +1258,27 @@ cudaError_t launch_bwd1(const void* x, const void* dy, const void* wq, const voi
       static_cast<const T*>(afullt), static_cast<const T*>(apre), static_cast<const float*>(bout),
       static_cast<float*>(da_part), static_cast<float*>(dwq_part), static_cast<float*>(db_part),
       static_cast<float*>(dgv_part), N, chunk, S);
+  return cudaGetLastError();
+}
+
+template <int C>
+cudaError_t launch_bwd1_tc(const void* x, const void* dy, const void* wq, const void* afullt,
+                           const void* apre, const void* bout, void* da_part, void* dwq_part,
+                           void* db_part, void* dgv_part, int B, int N, int chunk, int S,
+                           cudaStream_t stream) {
+  using L = Bwd1Tc<C>;
+  static_assert(L::smem() <= SMEM_MAX, "K4: shared memory over budget");
+  if (chunk % L::TR != 0) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(la_bwd1_tc_kernel<C>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)L::smem());
+  if (err != cudaSuccess) return err;
+  la_bwd1_tc_kernel<C><<<dim3(S, B, NH), L::WARPS * 32, L::smem(), stream>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(dy), static_cast<const bf16*>(wq),
+      static_cast<const bf16*>(afullt), static_cast<const bf16*>(apre),
+      static_cast<const float*>(bout), static_cast<float*>(da_part),
+      static_cast<float*>(dwq_part), static_cast<float*>(db_part), static_cast<float*>(dgv_part),
+      N, chunk, S);
   return cudaGetLastError();
 }
 
@@ -1046,8 +1332,8 @@ cudaError_t launch_bwd2_tc(const void* x, const void* dy, const void* wq, const 
 
 }  // namespace
 
-// K4. x, dy [B, N, C]; wq [C, 128]; afullt [B, C, 128]; apre [B, 128, C], all
-// in x's dtype; bout [C] f32. Partial outputs per split s of rows
+// K4 in f32. x, dy [B, N, C]; wq [C, 128]; afullt [B, C, 128]; apre
+// [B, 128, C], all f32; bout [C] f32. Partial outputs per split s of rows
 // [s * chunk, min(N, (s + 1) * chunk)), all f32: da_part [B, S, 128, C],
 // dwq_part [B, S, C, 128], db_part and dgv_part [B, S, C].
 extern "C" int gtt_la_bwd1(const void* x, const void* dy, const void* wq, const void* afullt,
@@ -1055,15 +1341,36 @@ extern "C" int gtt_la_bwd1(const void* x, const void* dy, const void* wq, const 
                            void* db_part, void* dgv_part, int B, int N, int C, int chunk, int S,
                            int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == gtt::kBFloat16) {
-    GTT_DISPATCH_C(launch_bwd1, __nv_bfloat16, x, dy, wq, afullt, apre, bout, da_part, dwq_part,
-                   db_part, dgv_part, B, N, chunk, S, st)
-  }
   if (dtype == gtt::kFloat32) {
     GTT_DISPATCH_C(launch_bwd1, float, x, dy, wq, afullt, apre, bout, da_part, dwq_part, db_part,
                    dgv_part, B, N, chunk, S, st)
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// K4 in bf16, on the tensor cores. x, dy [B, N, C]; wq [C, 128]; afullt
+// [B, C, 128]; apre [B, 128, C], all bf16; bout [C] f32. Partial outputs
+// per split s of chunk rows (a multiple of Bwd1Tc<C>::TR), all f32:
+// da_part [B, S, 128, C], dwq_part [B, S, C, 128], db_part [B, S, C] and
+// dgv_part [B, S, 4 heads, C] (b_out db in head 0's).
+extern "C" int gtt_la_bwd1_tc(const void* x, const void* dy, const void* wq, const void* afullt,
+                              const void* apre, const void* bout, void* da_part, void* dwq_part,
+                              void* db_part, void* dgv_part, int B, int N, int C, int chunk,
+                              int S, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (C) {
+    case 16: return (int)launch_bwd1_tc<16>(x, dy, wq, afullt, apre, bout, da_part, dwq_part,
+                                            db_part, dgv_part, B, N, chunk, S, st);
+    case 32: return (int)launch_bwd1_tc<32>(x, dy, wq, afullt, apre, bout, da_part, dwq_part,
+                                            db_part, dgv_part, B, N, chunk, S, st);
+    case 64: return (int)launch_bwd1_tc<64>(x, dy, wq, afullt, apre, bout, da_part, dwq_part,
+                                            db_part, dgv_part, B, N, chunk, S, st);
+    case 128: return (int)launch_bwd1_tc<128>(x, dy, wq, afullt, apre, bout, da_part, dwq_part,
+                                              db_part, dgv_part, B, N, chunk, S, st);
+    case 256: return (int)launch_bwd1_tc<256>(x, dy, wq, afullt, apre, bout, da_part, dwq_part,
+                                              db_part, dgv_part, B, N, chunk, S, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // K5 in f32. x, dy [B, N, C]; wk, wv [C, 128]; afullt [B, C, 128]; wqkv_t

@@ -64,6 +64,8 @@ SIGNATURES = {
         # x, dy, wq, afullt, apre, bout, da_part, dwq_part, db_part,
         # dgv_part, B, N, C, chunk, S, dtype, stream
         'gtt_la_bwd1': (_P,) * 10 + (_I,) * 6 + (_P,),
+        # the same without dtype (bf16, the tensor cores' kernel)
+        'gtt_la_bwd1_tc': (_P,) * 10 + (_I,) * 5 + (_P,),
         # x, dy, wk, wv, afullt, wqkv_t, m, dctx_t, dctx, dden, dx,
         # dwkv_part, B, N, C, chunk, S, dtype, stream
         'gtt_la_bwd2': (_P,) * 12 + (_I,) * 6 + (_P,),
@@ -82,6 +84,8 @@ SIGNATURES = {
     'mas': {
         # value, mask, decision, path, B, Tx, Ty, stream
         'gtt_mas': (_P, _P, _P, _P, _I, _I, _I, _P),
+        # value, mask, index_of, path, B, Tx, Ty, K, stream
+        'gtt_mas_dp': (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     },
 }
 

@@ -65,14 +65,15 @@ def split_chunk(B: int, N: int) -> int:
 
 
 def bwd_roles(kernel: str, C: int) -> int:
-    """Blocks per split and batch item of K4 / K5 (csrc/linear_attention_bwd.cu
-    Bwd1::ROLES, Bwd2::ROLES): each owns one slice of the accumulators."""
+    """Blocks per split and batch item of K4 / K5 in f32
+    (csrc/linear_attention_bwd.cu Bwd1::ROLES, Bwd2::ROLES): each owns one
+    slice of the accumulators."""
     return 2 * max(1, C // 128) if kernel == 'sweep1' \
         else 1 + HIDDEN // DIM_HEAD
 
 
 def bwd_split_chunk(B: int, N: int, C: int, itemsize: int, roles: int) -> int:
-    """Rows per split of K4/K5. Each split of each batch item writes f32
+    """Rows per split of K4/K5 in f32. Each split of each batch item writes f32
     partial sums of 2*C*H values (dA and dWq, or dWk and dWv), so the
     splits fill the card only as far as those partials stay under half the
     bytes of x: B*S*C*H*8 <= B*N*C*itemsize / 2."""
@@ -103,6 +104,18 @@ def bwd2_split_chunks(B: int, N: int, C: int):
     return (chunk_for(dx_blocks // B, 2 * _TC_ROWS, _TC_ROWS),
             chunk_for(dw_blocks // (B * HIDDEN // DIM_HEAD), _DW_ROWS,
                       _DW_ROWS))
+
+
+def bwd1_split_chunks(B: int, N: int, C: int) -> int:
+    """Rows per split of K4's bf16 kernel (csrc/linear_attention_bwd.cu
+    ``la_bwd1_tc_kernel``, ``Bwd1Tc``). Its grid is (S, B, 4 heads) and
+    its shared memory holds two blocks an SM at C <= 128, one at C 256; the
+    grid fills its SMs once (no second wave of a few blocks), and each
+    chunk is whole tiles (128 rows at C <= 64, else 64)."""
+    tile = 2 * _TC_ROWS if C <= 64 else _TC_ROWS
+    blocks = (2 if C <= 128 else 1) * _SMS
+    n_splits = max(1, min(blocks // (B * HIDDEN // DIM_HEAD), -(-N // tile)))
+    return -(-N // (n_splits * tile)) * tile
 
 
 def head_blockdiag(H: int, dim_head: int, device) -> torch.Tensor:
@@ -318,8 +331,9 @@ attention_apply.launches = 0
 
 def attention_bwd_sweep1(x, dy, w_q, a_full_t, a_pre, b_out):
     """K4. Same contract as :func:`attention_bwd_sweep1_plain`; CPU tensors
-    take the plain version, CUDA tensors launch the kernel or raise. The
-    per-split partial sums are added up here, in a fixed order."""
+    take the plain version, CUDA tensors launch the kernel (in bf16 the
+    tensor cores' one, in f32 the CUDA cores') or raise. The per-split
+    partial sums are added up here, in a fixed order."""
     if x.device.type == 'cpu':
         return attention_bwd_sweep1_plain(x, dy, w_q, a_full_t, a_pre, b_out)
     B, N, C = x.shape
@@ -329,22 +343,29 @@ def attention_bwd_sweep1(x, dy, w_q, a_full_t, a_pre, b_out):
             'b_out': b_out},
            [((B, N, C), x.dtype), ((C, H), x.dtype), ((B, C, H), x.dtype),
             ((B, H, C), x.dtype), ((C,), torch.float32)])
-    chunk = bwd_split_chunk(B, N, C, x.element_size(), bwd_roles('sweep1', C))
+    tc = x.dtype == torch.bfloat16
+    chunk = bwd1_split_chunks(B, N, C) if tc else bwd_split_chunk(
+        B, N, C, x.element_size(), bwd_roles('sweep1', C))
     S = -(-N // chunk)
     f32 = dict(dtype=torch.float32, device=x.device)
     da = torch.empty((B, S, H, C), **f32)
     dwq = torch.empty((B, S, C, H), **f32)
     db = torch.empty((B, S, C), **f32)
-    dgv = torch.empty((B, S, C), **f32)
+    # the tensor cores' kernel writes dgv's share of each head
+    dgv = torch.empty((B, S, H // DIM_HEAD, C) if tc else (B, S, C), **f32)
     lib = _build.load('linear_attention_bwd')
-    _build.check(lib, lib.gtt_la_bwd1(
-        x.data_ptr(), dy.data_ptr(), w_q.data_ptr(), a_full_t.data_ptr(),
-        a_pre.data_ptr(), b_out.data_ptr(), da.data_ptr(), dwq.data_ptr(),
-        db.data_ptr(), dgv.data_ptr(), B, N, C, chunk, S,
-        _build.DTYPE_CODES[x.dtype], _build.stream_of(x)), 'gtt_la_bwd1')
+    ptrs = (x.data_ptr(), dy.data_ptr(), w_q.data_ptr(), a_full_t.data_ptr(),
+            a_pre.data_ptr(), b_out.data_ptr(), da.data_ptr(), dwq.data_ptr(),
+            db.data_ptr(), dgv.data_ptr(), B, N, C, chunk, S)
+    if tc:
+        _build.check(lib, lib.gtt_la_bwd1_tc(*ptrs, _build.stream_of(x)),
+                     'gtt_la_bwd1_tc')
+    else:
+        _build.check(lib, lib.gtt_la_bwd1(*ptrs, _build.DTYPE_CODES[x.dtype],
+                                          _build.stream_of(x)), 'gtt_la_bwd1')
     attention_bwd_sweep1.launches += 1
     return (da.sum(dim=1), dwq.sum(dim=(0, 1)), db.sum(dim=(0, 1)),
-            dgv.sum(dim=(0, 1)))
+            dgv.flatten(0, -2).sum(dim=0))
 
 
 attention_bwd_sweep1.launches = 0

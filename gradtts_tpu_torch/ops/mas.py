@@ -6,6 +6,9 @@ backtrace of ``_backtrace`` (:58). The JAX package runs it as a
 ``lax.scan``; the port runs it as one CUDA kernel, ``csrc/mas.cu``, whose
 source says what bounds it on the H100 and how it is laid out. Both give
 the path bit for bit: the same f32 additions in the same order per cell.
+The kernel has two routes, chosen by shape (:func:`mas_route`): a DP held
+in one warp's registers for every text bucket up to 512, and a block-wide
+DP for longer texts.
 """
 
 import torch
@@ -13,6 +16,36 @@ import torch
 from gradtts_tpu_torch.ops import _build
 
 MAX_NEG = -1e9
+
+# csrc/mas.cu: the register route's cells a lane (K), its ring of 16-frame
+# tiles (2 to 4 stages) and the dynamic shared memory it may take
+_DP_K = (4, 8, 12, 16)
+_DP_FRAMES, _DP_MAX_STAGES = 16, 4
+_DP_SMEM_MAX = 226 * 1024
+
+
+def dp_smem(K: int, ty_max: int):
+    """Shared memory bytes of the register route at K cells a lane
+    (csrc/mas.cu ``DpLayout<K>::smem``): the decision words, one bit a cell
+    and frame, and as many value * mask tiles (2 to 4) as fit beside them;
+    None where two do not."""
+    ls = K + 4 if K % 8 == 0 else K
+    tile = _DP_FRAMES * (32 * ls + 4) * 4
+    dec = -(-ty_max // 32) * K * 32 * 4
+    if dec + 2 * tile > _DP_SMEM_MAX:
+        return None
+    return min(_DP_MAX_STAGES, (_DP_SMEM_MAX - dec) // tile) * tile + dec
+
+
+def mas_route(tx_max: int, ty_max: int):
+    """(route, K) of the CUDA kernel at [*, tx_max, ty_max]: ('register', K)
+    for the one-warp DP with K cells a lane (the least K of 4, 8, 12, 16
+    with 32 K >= tx_max) where its ring and decision words fit in shared
+    memory, else ('block', None), the block-wide DP."""
+    K = next((k for k in _DP_K if 32 * k >= tx_max), None)
+    if K is None or dp_smem(K, ty_max) is None:
+        return 'block', None
+    return 'register', K
 
 
 def _lengths(mask):
@@ -62,7 +95,7 @@ def maximum_path_plain(value, mask):
 def maximum_path(value, mask):
     """value, mask [B, Tx, Ty] f32 -> the binary path [B, Tx, Ty] f32.
     CPU tensors take :func:`maximum_path_plain`; CUDA tensors launch the
-    kernel or raise."""
+    kernel of :func:`mas_route`'s route or raise."""
     if value.device.type == 'cpu':
         return maximum_path_plain(value, mask)
     if value.dim() != 3 or value.dtype != torch.float32:
@@ -74,14 +107,23 @@ def maximum_path(value, mask):
                          "value's shape on its device")
     value, mask = value.contiguous(), mask.contiguous()
     B, tx_max, ty_max = value.shape
-    decision = torch.empty(value.shape, dtype=torch.uint8,
-                           device=value.device)
     path = torch.empty_like(value)
     lib = _build.load('mas')
-    _build.check(lib, lib.gtt_mas(
-        value.data_ptr(), mask.data_ptr(), decision.data_ptr(),
-        path.data_ptr(), B, tx_max, ty_max, _build.stream_of(value)),
-        'gtt_mas')
+    route, K = mas_route(tx_max, ty_max)
+    if route == 'register':
+        index_of = torch.empty((B, ty_max), dtype=torch.int32,
+                               device=value.device)
+        _build.check(lib, lib.gtt_mas_dp(
+            value.data_ptr(), mask.data_ptr(), index_of.data_ptr(),
+            path.data_ptr(), B, tx_max, ty_max, K,
+            _build.stream_of(value)), 'gtt_mas_dp')
+    else:
+        decision = torch.empty(value.shape, dtype=torch.uint8,
+                               device=value.device)
+        _build.check(lib, lib.gtt_mas(
+            value.data_ptr(), mask.data_ptr(), decision.data_ptr(),
+            path.data_ptr(), B, tx_max, ty_max, _build.stream_of(value)),
+            'gtt_mas')
     maximum_path.launches += 1
     return path
 

@@ -5,6 +5,8 @@ in interpret mode, i.e. ``_backward_pallas``) and of its jnp twin
 ``_reference``; and the two sweeps' outputs against the Pallas sweeps'
 outputs on the same inputs. Cases of tests/test_pallas.py:105-140."""
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -199,3 +201,86 @@ def test_bwd2_split_chunks_tile_the_rows_in_one_wave(B, N, C):
     assert B * S_w * 4 <= (2 if C < 256 else 1) * 132 or S_w == 1
     if N >= 2 * 64 * S:
         assert chunk >= 128
+
+
+def _sweep1_inputs(seed, B, N, C, H):
+    """K4's inputs as the backward hands them over, f32 from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    t = [rng.standard_normal(s).astype(np.float32) * sc for s, sc in (
+        ((B, N, C), 1.0), ((B, N, C), 1.0), ((C, H), 0.3), ((B, C, H), 0.1),
+        ((B, H, C), 0.1), ((C,), 0.1))]
+    return [torch.from_numpy(a) for a in t]
+
+
+@pytest.mark.parametrize('C', [16, 64])
+def test_sweep1_dgv_reassociated_and_q_split_match_pallas(C):
+    # The bf16 K4 kernel forms dgv without the o = round(q) A_pre product:
+    # summed over the rows, dy * o reassociates to sum_h A_pre[h, c]
+    # (round(q)^T dy)[h, c], plus b_out db; and it keeps q f32 for dA as
+    # bf16 hi + lo parts, dA = hi^T dy + lo^T dy. Both routes, in f32, at
+    # a ragged N (5 * 9 = 45 rows in Pallas tiles of 16), against the plain
+    # sweep and the dgv and dA of _bwd_sweep1_kernel in interpret mode.
+    B, F, T, H = 2, 5, 9, 128
+    N = F * T
+    # the bf16 route's inputs (f32 values rounded to bf16), where q is
+    # rounded before o; every product in f32
+    *ins, b_out = _sweep1_inputs(20 + C, B, N, C, H)
+    x, dy, w_q, a_full_t, a_pre = (t.to(torch.bfloat16) for t in ins)
+    call = jla.pl.pallas_call(
+        functools.partial(jla._bwd_sweep1_kernel, n_total=N, n_tile=16),
+        grid=(B, -(-N // 16)),
+        in_specs=[jla.pl.BlockSpec((1, 16, C), lambda b, t: (b, t, 0))] * 2
+        + [jla.pl.BlockSpec((C, H), lambda b, t: (0, 0)),
+           jla.pl.BlockSpec((1, C, H), lambda b, t: (b, 0, 0)),
+           jla.pl.BlockSpec((1, H, C), lambda b, t: (b, 0, 0)),
+           jla.pl.BlockSpec((1, C), lambda b, t: (0, 0))],
+        out_specs=[jla.pl.BlockSpec((1, H, C), lambda b, t: (b, 0, 0)),
+                   jla.pl.BlockSpec((C, H), lambda b, t: (0, 0)),
+                   jla.pl.BlockSpec((1, C), lambda b, t: (0, 0)),
+                   jla.pl.BlockSpec((1, C), lambda b, t: (0, 0))],
+        out_shape=[jax.ShapeDtypeStruct((B, H, C), jnp.float32),
+                   jax.ShapeDtypeStruct((C, H), jnp.float32),
+                   jax.ShapeDtypeStruct((1, C), jnp.float32),
+                   jax.ShapeDtypeStruct((1, C), jnp.float32)],
+        scratch_shapes=[jla.pltpu.VMEM((H, C), jnp.float32),
+                        jla.pltpu.VMEM((C, H), jnp.float32),
+                        jla.pltpu.VMEM((1, C), jnp.float32),
+                        jla.pltpu.VMEM((1, C), jnp.float32)],
+        interpret=True)
+    da_p, _, _, dgv_p = (np.asarray(o) for o in call(
+        *(jnp.asarray(t.float().numpy(), jnp.bfloat16)
+          for t in (x, dy, w_q, a_full_t, a_pre)),
+        jnp.asarray(b_out.numpy())[None]))
+
+    da, _, db, dgv = tla.attention_bwd_sweep1_plain(x, dy, w_q, a_full_t,
+                                                    a_pre, b_out)
+    x, dy, w_q, a_pre = (t.float() for t in (x, dy, w_q, a_pre))
+    q = x @ w_q                                       # f32, as the kernel's
+    hi = q.to(torch.bfloat16).float()
+    lo = (q - hi).to(torch.bfloat16).float()
+    da_hi = hi.transpose(1, 2) @ dy                   # [B, H, C]
+    dgv_re = (a_pre * da_hi).sum(dim=(0, 1)) + b_out * db
+    da_split = da_hi + lo.transpose(1, 2) @ dy
+    # f32 sums in other orders: 1e-5 of the largest value; the split drops
+    # ~2^-17 of each q
+    for name, got, want in (('dgv', dgv_re, dgv), ('dgv', dgv_re, dgv_p[0]),
+                            ('dA', da_split, da), ('dA', da_split, da_p)):
+        want = np.asarray(want)
+        np.testing.assert_allclose(np.asarray(got), want, rtol=0,
+                                   atol=F32_FRAC * np.abs(want).max(),
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize('B,N,C', [(16, 13760, 64), (16, 3440, 128),
+                                   (16, 860, 256), (16, 860, 128),
+                                   (16, 3440, 64), (1, 1001, 64),
+                                   (8, 100, 256), (2, 64, 16)])
+def test_bwd1_split_chunks_tile_the_rows_in_one_wave(B, N, C):
+    # K4's bf16 splits: whole tiles (128 rows at C <= 64, else 64); the
+    # grid of (S, B, 4 heads) fits the card at its blocks an SM (one
+    # wave); the splits cover N with no empty split
+    chunk = tla.bwd1_split_chunks(B, N, C)
+    assert chunk % (128 if C <= 64 else 64) == 0
+    S = -(-N // chunk)
+    assert (S - 1) * chunk < N <= S * chunk
+    assert B * S * 4 <= (2 if C <= 128 else 1) * 132 or S == 1

@@ -315,3 +315,63 @@ def test_groupnorm_mish_kernel_every_channel_count(cuda, C, dtype):
     d = (got.float() - want.float()).abs()
     assert bool((d <= tol + tol * want.float().abs()).all()), float(d.max())
     assert float(got[2, :, 30:].float().abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('C', tla._CHANNELS)
+def test_bwd_sweep1_kernel_matches_plain(cuda, C, dtype):
+    # K4 alone at every channel count: ragged row counts (the crops' 860
+    # and 3440 rows, and 1001, odd), B 1 and 16; each output of its largest
+    # value, as in chip_smoke.py (TOL); in bf16 dA within 2^-12, since the
+    # kernel keeps q f32 (bf16 hi + lo) for it; two runs give the same bits
+    rng = np.random.default_rng(10)
+    H = tla.HIDDEN
+
+    def t(shape, scale=1.0, dt=dtype):
+        return torch.tensor(rng.standard_normal(shape) * scale,
+                            device=cuda).to(dt)
+
+    tol = 1e-4 if dtype == torch.float32 else 2 ** -7
+    tols = [1e-4 if dtype == torch.float32 else 2 ** -12] + [tol] * 3
+    for B, N in ((16, 860), (16, 3440), (1, 1001)):
+        args = (t((B, N, C), 2.0), t((B, N, C)), t((C, H), 0.5 / C ** 0.5),
+                t((B, C, H), 0.1), t((B, H, C), 0.1),
+                t((C,), 0.1, torch.float32))
+        got = tla.attention_bwd_sweep1(*args)
+        again = tla.attention_bwd_sweep1(*args)
+        torch.cuda.synchronize()
+        want = tla.attention_bwd_sweep1_plain(*args)
+        shapes = [(B, H, C), (C, H), (C,), (C,)]
+        for g, a, w, shape, tl in zip(got, again, want, shapes, tols):
+            assert tuple(g.shape) == shape and g.dtype == torch.float32
+            assert torch.equal(g, a)
+            assert float((g - w).abs().max()) <= tl * float(w.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('shape,scale', [
+    ((16, 384, 1024), 30.0), ((8, 128, 512), 30.0), ((4, 512, 2048), 30.0),
+    ((3, 45, 700), 30.0), ((3, 200, 701), 30.0), ((2, 600, 1400), 30.0),
+    ((3, 40, 90), 4e8)])
+def test_maximum_path_kernel_routes_equal_plain(cuda, shape, scale):
+    # MAS bit-exact on both routes: the one-warp DP (Tx <= 512, also a Tx
+    # and a Ty that are not multiples of 32 or 4) and the block-wide DP
+    # (Tx 600), with ragged lengths and one item at full length; values so
+    # large that the cells above the diagonal climb past -1e9
+    from gradtts_tpu_torch.ops import mas
+    rng = np.random.default_rng(11)
+    B, tx, ty = shape
+    t_x = rng.integers(tx // 2, tx + 1, B)
+    t_y = np.minimum(t_x * rng.uniform(2.0, 4.0, B), ty).astype(int)
+    t_x[0], t_y[0] = tx, ty
+    mask = torch.zeros(shape, device=cuda)
+    for i in range(B):
+        mask[i, :t_x[i], :t_y[i]] = 1.0
+    value = torch.tensor(rng.standard_normal(shape) * scale - 100.0,
+                         dtype=torch.float32, device=cuda)
+    before = mas.maximum_path.launches
+    got = mas.maximum_path(value, mask)
+    torch.cuda.synchronize()
+    assert mas.maximum_path.launches == before + 1
+    assert torch.equal(got, mas.maximum_path_plain(value, mask))

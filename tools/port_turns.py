@@ -1,7 +1,7 @@
 """Two checkouts of the PyTorch/CUDA port against each other on one GPU, in
 turns: synthesis audio-s/s and device-busy ms, the train step's time and
 device-busy ms, the likelihood call's time and device-busy ms, and the
-device ms of K1 and K2-K7 on the paths that launch them.
+device ms of K1, K2-K7 and MAS on the paths that launch them.
 
     python3 tools/port_turns.py PARENT_DIR CHANGE_DIR [--order pccp]
 
@@ -72,7 +72,9 @@ def _ms(line, *kernels):
 
 
 K1 = ('gn_stats_kernel', 'gn_apply_kernel')
+K4 = ('la_bwd1_kernel', 'la_bwd1_tc_kernel')
 K5 = ('la_bwd2_kernel', 'la_bwd2_dx_kernel', 'la_bwd2_dw_kernel')
+MAS = ('mas_kernel', 'mas_dp_kernel', 'mas_path_kernel')
 
 
 def main():
@@ -105,8 +107,9 @@ def main():
                'train_device_busy_ms': train['device_busy_ms'],
                'train_device_idle_share': train['device_idle_share'],
                'train_k1_ms': _ms(train, *K1),
-               'train_k4_ms': train['kernel_ms']['la_bwd1_kernel'],
+               'train_k4_ms': _ms(train, *K4),
                'train_k5_ms': _ms(train, *K5),
+               'train_mas_ms': _ms(train, *MAS),
                'lik_s_per_call': lik['seconds_per_call'],
                'lik_hypotheses_per_s': lik['hypotheses_per_s'],
                'lik_device_busy_ms': lik['device_busy_ms'],
@@ -114,16 +117,17 @@ def main():
                'lik_k2_ms': lik['kernel_ms']['la_stats_kernel'],
                'lik_k3_ms': lik['kernel_ms']['la_apply_kernel'],
                'lik_k6_ms': lik['kernel_ms']['la_jvp_stats_kernel'],
-               'lik_k7_ms': lik['kernel_ms']['la_jvp_apply_kernel']}
+               'lik_k7_ms': lik['kernel_ms']['la_jvp_apply_kernel'],
+               'lik_mas_ms': _ms(lik, *MAS)}
         runs[which].append(row)
         print(json.dumps(row), flush=True)
     summary = {'card': card, 'order': args.order}
     for which, name in (('p', 'parent'), ('c', 'change')):
         for key in ('synth_audio_s_per_s', 'synth_device_busy_ms',
                     'synth_k1_ms', 'train_s_per_step',
-                    'train_device_busy_ms', 'train_k5_ms', 'lik_s_per_call',
-                    'lik_device_busy_ms', 'lik_k1_ms', 'lik_k6_ms',
-                    'lik_k7_ms'):
+                    'train_device_busy_ms', 'train_k4_ms', 'train_k5_ms',
+                    'train_mas_ms', 'lik_s_per_call', 'lik_device_busy_ms',
+                    'lik_k1_ms', 'lik_k6_ms', 'lik_k7_ms', 'lik_mas_ms'):
             vals = [r[key] for r in runs[which]]
             if vals:
                 summary[f'{name}_{key}_median'] = statistics.median(vals)
