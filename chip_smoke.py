@@ -26,33 +26,57 @@ Phases, each printing one JSON line:
               untimed, the training shapes, MAS at [16, 384, 1024] and
               [8, 128, 512] and, untimed, at [4, 512, 2048], a Tx that is
               not a multiple of 32 and a Tx above 512 (the block route);
+              untimed, K1-K5 at the tedlium-spk training shapes (B 16,
+              128-frame crops) and MAS at [16, 192, 384];
   3. slice    a full-width ljspeech GradTTS with every weight drawn from a
               seed: 10-step synthesis (B 2, Tx 64, Ty 256, f32) on the GPU
               against the same on the CPU (plain versions);
-  4. cli      python -m gradtts_tpu_torch.cli.inference on that checkpoint;
-  5. synth    bf16 synthesis at B 8, Tx 128, Ty 768, 10 Euler steps: launch
+  4. samplers_slice  the slice model's 10-step stoc Euler (the same draws on
+              both devices) and 10-step DPM, GPU against CPU;
+  5. speakers_slice  tedlium-spk (675 x 128 speaker table), tedlium (192-d
+              speaker vectors) and libri-tts with the encoder-side speaker
+              concat, each seeded at full width: 10-step synthesis,
+              compute_loss + backward and a 4-step score_batch, GPU
+              against CPU at the limits of slice, train_slice and
+              likelihood_slice;
+  6. vocoder_slice  the HiFi-GAN V1 generator on B 2 x 256 frames: f32 GPU
+              against CPU, bf16 against f32 on the GPU;
+  7. cli      python -m gradtts_tpu_torch.cli.inference on those
+              checkpoints: Euler, --sampler dpm and --stoc with --vocoder
+              (wavs read back), and -s 3 on the tedlium-spk model;
+  8. synth    bf16 synthesis at B 8, Tx 128, Ty 768, 10 Euler steps: launch
               counts per synthesis, audio-s/s and the kernels' device share;
-  6. train_slice  the same seeded model: compute_loss + backward (B 2, Tx 64,
+     dpm8     the same with 8 DPM steps; waveform: 50 Euler steps and the
+              vocoder, then the vocoder alone in f32 and bf16 (x real time,
+              device ms by family); multispeaker: libri-tts, 10 steps;
+  9. train_slice  the slice model: compute_loss + backward (B 2, Tx 64,
               Ty 256, 172-frame crop, f32) on the GPU against the CPU, with
               the same crop offsets, diffusion times and noise;
-  7. train    python -m gradtts_tpu_torch.cli.train --preset ljspeech on a
+ 10. train    python -m gradtts_tpu_torch.cli.train --preset ljspeech on a
               synthetic 64-utterance corpus (B 16, bf16 compute, f32
               parameters), a resumed step, cli.inference on its checkpoint;
               then the train step timed in-process: launches per step,
               steps/s, audio-s trained per second and the device share;
-  8. likelihood_slice  the phase-3 model: score_batch (likelihood of real
+     train_spk  the same for --preset tedlium-spk on a synthetic 16 kHz
+              speaker corpus of Tx 192 x Ty 344 utterances (128-frame
+              crops), utterances/s as well;
+ 11. likelihood_slice  the slice model: score_batch (likelihood of real
               mels under text hypotheses, 4-step Euler, Hutchinson jvp;
               B 2, Tx 64, Ty 256, f32) on the GPU against the CPU, with the
               same probe;
-  9. nbest_cli  python -m gradtts_tpu_torch.cli.nbest score on a synthetic
+ 12. nbest_cli  python -m gradtts_tpu_torch.cli.nbest score on a synthetic
               n-best list over synthetic wavs, then compile and rescore;
- 10. likelihood  score_batch at B 8, Tx 128, Ty 512, 10-step Euler, bf16
+              once with --preset ljspeech, once with the default preset
+              (tedlium-spk) on a speaker filelist;
+ 13. likelihood  score_batch at B 8, Tx 128, Ty 512, 10-step Euler, bf16
               compute: hypotheses/s, launches per call, the device share;
- 11. adaptive  one adaptive Dormand-Prince score_batch (B 2, Ty 256).
-Then the card's name and power limit (nvidia-smi), the {"kernels": [...]}
-line, and last {"ok": true, "device": {...}}. Any failure exits non-zero
-before the last line; so does a machine without a GPU or a directory
-without the package.
+ 14. adaptive  one adaptive Dormand-Prince score_batch (B 2, Ty 256).
+Each timed path (synth, dpm8, waveform, multispeaker, train, train_spk,
+likelihood) sets the launch counts to 0 just before its main run and reads
+them just after. Then the total seconds, the card's name and power limit
+(nvidia-smi), the {"kernels": [...]} line, and last {"ok": true, "device":
+{...}}. Any failure exits non-zero before the last line; so does a machine
+without a GPU or a directory without the package.
 """
 
 import json
@@ -80,11 +104,19 @@ LEVELS = [((80, 768, 64), 5, 1), ((40, 384, 128), 4, 1),
           ((40, 384, 64), 4, 1)]
 # the training shapes: B 16, 172-frame crops (config.out_size); F*T of 3440
 # and 860 leave ragged 32- and 64-row tiles in the attention kernels
-TRAIN_B, CROP = 16, 172
+TRAIN_B = 16
 TRAIN_LEVELS = [((80, 172, 64), 5, 1), ((40, 86, 128), 4, 1),
                 ((20, 43, 256), 8, 2), ((20, 43, 128), 4, 1),
                 ((40, 86, 64), 4, 1)]
 MAS_SHAPE = (16, 384, 1024)      # [B, Tx, Ty]: the 384-token, 1024-frame buckets
+# the tedlium-spk training shapes (16 kHz): B 16, 128-frame crops
+# (fix_len_compatibility(2 * 16000 // 256)), MAS over the 192-token,
+# 384-frame bucket of ~5.5 s utterances (bench_suite.py:143); checked, not
+# timed
+SPK_LEVELS = [((80, 128, 64), 5, 1), ((40, 64, 128), 4, 1),
+              ((20, 32, 256), 8, 2), ((20, 32, 128), 4, 1),
+              ((40, 64, 64), 4, 1)]
+SPK_MAS_SHAPE = (16, 192, 384)
 # the likelihood shapes: score_batch at B 8, Tx 128, Ty 512, 10 Euler steps
 # (bench_suite.py:187-208); every drift evaluation runs the U-Net forward
 # and its jvp: K1-K3 for the primal, K6 + K7 for the attention's tangent
@@ -126,7 +158,7 @@ KERNELS = list(TOL)
 # attention is quadratic in its input's scale; these gains keep the U-Net's
 # un-normed residual stream finite while the attention still contributes
 GAINS = (('to_qkv', 0.05), ('res_conv', 0.3), ('.3.conv', 0.5))
-SLICE_TOL = 1e-3   # of max |mel|: GPU vs CPU, f32 with TF32 off (see phase 3)
+SLICE_TOL = 1e-3   # of max |mel|: GPU vs CPU, f32 with TF32 off (phase slice)
 
 
 class SmokeFailure(Exception):
@@ -182,7 +214,7 @@ def bound(nbytes, flops, dtype_name):
         'operations'
 
 
-# ---- phase 1 ---------------------------------------------------------------
+# ---- build ------------------------------------------------------------------
 
 
 def _entry_name(mangled):
@@ -311,7 +343,7 @@ def phase_build():
                     f'build: {fn} spills ({ptxas[fn]})')
 
 
-# ---- phase 2 ---------------------------------------------------------------
+# ---- kernels ----------------------------------------------------------------
 
 
 def _err(got, want, tol, rel_to_max):
@@ -389,7 +421,8 @@ def phase_kernels(device):
 
     for path, bsz, levels in (('synth', B, LEVELS),
                               ('train', TRAIN_B, TRAIN_LEVELS),
-                              ('likelihood', LIK_B, LIK_LEVELS)):
+                              ('likelihood', LIK_B, LIK_LEVELS),
+                              ('train_spk', TRAIN_B, SPK_LEVELS)):
         for (F, T, C), n_blocks, n_attn in levels:
             N = F * T
             lengths = torch.tensor([T] * (bsz - 2) + [T * 3 // 4, T // 3],
@@ -454,7 +487,7 @@ def phase_kernels(device):
                     'attention_stats': lambda got, want: stats_pairs(got),
                     'attention_apply': lambda got, want: [(got, want, False)],
                 }
-                if path == 'train':
+                if path in ('train', 'train_spk'):
                     dy = rand((bsz, N, C), 1.0, dtype)
                     a_pre = la.fold_context(ctx_p, den_p, w_out, b_out,
                                             torch.ones(1, device=device))[0]
@@ -569,7 +602,8 @@ def phase_kernels(device):
                         line[name]['bitwise_repeatable'] = same
                         require(same, f'{name} {dn} {(bsz, F, T, C)}: two '
                                       'runs differ')
-                    if dtype == torch.bfloat16 and name not in untimed:
+                    if dtype == torch.bfloat16 and name not in untimed \
+                            and path != 'train_spk':
                         # the main paths' dtype
                         mult, nbytes, flops, peak = work[name]
                         _timed(st.setdefault(path, _stat()), mult, fn, plain,
@@ -609,7 +643,7 @@ def phase_kernels(device):
     _kernel_mas(device, rng, stats['maximum_path'], 'train', MAS_SHAPE)
     _kernel_mas(device, rng, stats['maximum_path'], 'likelihood',
                 LIK_MAS_SHAPE)
-    for shape in MAS_UNTIMED:
+    for shape in MAS_UNTIMED + (SPK_MAS_SHAPE,):
         _kernel_mas(device, rng, stats['maximum_path'], None, shape)
     return stats
 
@@ -740,7 +774,7 @@ def _kernel_mas(device, rng, st, path, shape):
     emit(line)
 
 
-# ---- phase 3 ---------------------------------------------------------------
+# ---- slice ------------------------------------------------------------------
 
 
 def seeded_state_dict(model, seed):
@@ -810,11 +844,77 @@ def likelihood_counts(steps):
             'attention_jvp_apply': 6 * steps, 'maximum_path': 1}
 
 
+def _slice_batch(cfg, rng, bsz=2, t_x=64):
+    """Token ids [2, 64] of the slices, the second item 40 long."""
+    import torch
+    x = torch.from_numpy(rng.integers(1, cfg.n_vocab, (bsz, t_x)))
+    x[1, 40:] = 0
+    return x, torch.tensor([t_x, 40])
+
+
+def _on(dev, kw):
+    import torch
+    return {k: v.to(dev) if torch.is_tensor(v) else v for k, v in kw.items()}
+
+
+def _check(line, checks):
+    """Emits ``line``, then requires each (condition, message)."""
+    emit(line)
+    for cond, msg in checks:
+        require(cond, msg)
+
+
+def _gpu_vs_cpu_synthesis(make_model, device, x, x_lengths, t_y, what, **kw):
+    """10-step synthesis (temperature 1.5) of ``make_model(dev)`` on the GPU
+    and on the CPU (plain versions) with the same inputs ``kw`` (noise,
+    speakers, sampler). Returns (line entries, checks): y_lengths and attn
+    equal, the mel finite and within SLICE_TOL of its largest value (f32
+    on both sides with TF32 off; cuDNN and oneDNN pick other conv
+    algorithms and sum orders, ~1e-5 relative per U-Net call, and the
+    steps grow the mel and its error alike: 1e-3 of the largest value
+    leaves a wide margin), the kernels launched as EXPECTED_COUNTS on the
+    GPU and never on the CPU."""
+    import torch
+    from gradtts_tpu_torch.models.tts import synthesize
+    outs = []
+    for dev in (device, torch.device('cpu')):
+        model = make_model(dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        res = synthesize(model, x.to(dev), x_lengths.to(dev), STEPS, t_y,
+                         temperature=1.5, **_on(dev, kw))
+        outs.append(([t.cpu() for t in res], read_counts(),
+                     time.perf_counter() - t0))
+    (g, counts, g_s), (c, cpu_counts, c_s) = outs
+    enc_g, dec_g, attn_g, yl_g, _ = g
+    enc_c, dec_c, attn_c, yl_c, _ = c
+    scale = float(dec_c.abs().max())
+    err = float((dec_g - dec_c).abs().max())
+    entry = {'y_lengths': yl_g.tolist(),
+             'y_lengths_equal': bool(torch.equal(yl_g, yl_c)),
+             'attn_equal': bool(torch.equal(attn_g, attn_c)),
+             'encoder_max_abs_err': float((enc_g - enc_c).abs().max()),
+             'decoder_max_abs_err': err, 'decoder_max_abs': scale,
+             'tol': SLICE_TOL * scale, 'gpu_launches': counts,
+             'cpu_launches': cpu_counts, 'gpu_s': g_s, 'cpu_s': c_s}
+    checks = [
+        (entry['y_lengths_equal'] and entry['attn_equal'],
+         f'{what}: y_lengths or attn differ between GPU and CPU'),
+        (bool(torch.isfinite(dec_g).all()) and scale > 0,
+         f'{what}: mel not finite'),
+        (err <= SLICE_TOL * scale,
+         f'{what}: decoder max abs err {err} over {SLICE_TOL * scale}'),
+        (counts == EXPECTED_COUNTS, f'{what}: GPU launches {counts}'),
+        (not any(cpu_counts.values()), f'{what}: the CPU run launched '
+                                       'kernels')]
+    return entry, checks
+
+
 def phase_slice(device):
     import numpy as np
     import torch
     from gradtts_tpu_torch.config import get_config
-    from gradtts_tpu_torch.models.tts import GradTTS, synthesize
+    from gradtts_tpu_torch.models.tts import GradTTS
 
     cfg = get_config('ljspeech')
     sd = seeded_state_dict(GradTTS.from_config(cfg), seed=0)
@@ -823,83 +923,68 @@ def phase_slice(device):
     torch.save(sd, ckpt)
 
     rng = np.random.default_rng(1)
-    bsz, t_x, t_y = 2, 64, 256
-    x = torch.from_numpy(rng.integers(1, cfg.n_vocab, (bsz, t_x)))
-    x_lengths = torch.tensor([t_x, 40])
-    x[1, 40:] = 0
+    x, x_lengths = _slice_batch(cfg, rng)
     noise = torch.from_numpy(
-        rng.standard_normal((bsz, t_y, cfg.data.n_feats)).astype(np.float32))
-    results = []
-    for dev in (device, torch.device('cpu')):
-        model = GradTTS.from_config(cfg)
-        model.load_state_dict(torch.load(ckpt, weights_only=True),
-                              strict=True)
-        model = model.to(dev).eval()
-        reset_counts()
-        t0 = time.perf_counter()
-        res = synthesize(model, x.to(dev), x_lengths.to(dev), STEPS, t_y,
-                         temperature=1.5, noise=noise.to(dev))
-        res = [t.cpu() for t in res]
-        results.append((res, read_counts(), time.perf_counter() - t0))
-    (g, counts, g_s), (c, cpu_counts, c_s) = results
-    enc_g, dec_g, attn_g, yl_g, _ = g
-    enc_c, dec_c, attn_c, yl_c, _ = c
-    scale = float(dec_c.abs().max())
-    err = float((dec_g - dec_c).abs().max())
-    line = {'phase': 'slice', 'params': sum(v.numel() for v in sd.values()),
-            'y_lengths': yl_g.tolist(),
-            'y_lengths_equal': bool(torch.equal(yl_g, yl_c)),
-            'attn_equal': bool(torch.equal(attn_g, attn_c)),
-            'encoder_max_abs_err': float((enc_g - enc_c).abs().max()),
-            'decoder_max_abs_err': err, 'decoder_max_abs': scale,
-            'tol': SLICE_TOL * scale, 'gpu_launches': counts,
-            'cpu_launches': cpu_counts, 'gpu_s': g_s, 'cpu_s': c_s}
-    emit(line)
-    require(line['y_lengths_equal'] and line['attn_equal'],
-            'slice: y_lengths or attn differ between GPU and CPU')
-    require(bool(torch.isfinite(dec_g).all()) and scale > 0,
-            'slice: mel not finite')
-    # f32 on both sides with TF32 off; cuDNN and oneDNN pick other conv
-    # algorithms and sum orders (~1e-5 relative per U-Net call), and the
-    # Euler steps grow the mel and its error alike: 1e-3 of the largest
-    # value leaves a wide margin
-    require(err <= SLICE_TOL * scale, f'slice: decoder max abs err {err} '
-                                      f'over {SLICE_TOL * scale}')
-    require(counts == EXPECTED_COUNTS, f'slice: GPU launches {counts}')
-    require(not any(cpu_counts.values()), 'slice: the CPU run launched kernels')
+        rng.standard_normal((2, 256, cfg.data.n_feats)).astype(np.float32))
+    entry, checks = _gpu_vs_cpu_synthesis(
+        lambda dev: _seeded_model(cfg, ckpt, dev), device, x, x_lengths, 256,
+        'slice', noise=noise)
+    _check({'phase': 'slice', 'params': sum(v.numel() for v in sd.values()),
+            **entry}, checks)
     return ckpt
 
 
-# ---- phase 4 ---------------------------------------------------------------
+# ---- cli --------------------------------------------------------------------
 
 
-def phase_cli(ckpt):
+def _cli_outputs(out, n, wav):
+    """The shapes of ``mel_{i}.npy`` (and, with ``wav``, of
+    ``sample_{i}.wav``) for the n texts, each read back, non-empty and
+    finite."""
     import numpy as np
+    from scipy.io import wavfile
+    shapes = []
+    for i in range(n):
+        mel = np.load(os.path.join(out, f'mel_{i}.npy'))
+        require(mel.ndim == 2 and mel.shape[1] == 80 and mel.shape[0] > 0
+                and np.isfinite(mel).all(), f'cli: {out} mel_{i} malformed')
+        shapes.append(list(mel.shape))
+        if wav:
+            _, samples = wavfile.read(os.path.join(out, f'sample_{i}.wav'))
+            require(samples.dtype == np.int16 and samples.shape
+                    == (mel.shape[0] * HOP,) and samples.any(),
+                    f'cli: {out} sample_{i}.wav malformed')
+            shapes[-1].append(int(samples.shape[0]))
+    return shapes
+
+
+def phase_cli(ckpt, spk_ckpt, vocoder_ckpt):
+    """python -m gradtts_tpu_torch.cli.inference on the seeded checkpoints:
+    the Euler ODE, DPM with the vocoder, the SDE (--stoc) with the
+    vocoder, and a speaker of the seeded tedlium-spk model (-s 3)."""
     texts = os.path.join(WORK, 'texts.txt')
-    out = os.path.join(WORK, 'cli_out')
     with open(texts, 'w', encoding='utf-8') as f:
         f.write('The quick brown fox jumps over the lazy dog.\n'
                 'Grad-TTS synthesizes a mel-spectrogram from text.\n'
                 'It ran on the GPU in 2026.\n')
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, '-m', 'gradtts_tpu_torch.cli.inference', '-f', texts,
-         '-c', ckpt, '-o', out, '-t', str(STEPS)], cwd=REPO,
-        capture_output=True, text=True, timeout=600)
-    print(proc.stdout, end='')
-    require(proc.returncode == 0, f'cli exited {proc.returncode}:\n'
-                                  f'{proc.stderr[-3000:]}')
-    shapes = []
-    for i in range(3):
-        mel = np.load(os.path.join(out, f'mel_{i}.npy'))
-        require(mel.ndim == 2 and mel.shape[1] == 80 and mel.shape[0] > 0
-                and np.isfinite(mel).all(), f'cli: mel_{i} is malformed')
-        shapes.append(list(mel.shape))
-    emit({'phase': 'cli', 'seconds': time.perf_counter() - t0,
-          'mels': shapes})
+    vocoder = ['--vocoder', vocoder_ckpt]
+    runs = {'euler': (ckpt, []), 'dpm_vocoder': (ckpt, ['--sampler', 'dpm',
+                                                        *vocoder]),
+            'stoc_vocoder': (ckpt, ['--stoc', *vocoder]),
+            'tedlium_spk_s3': (spk_ckpt, ['--preset', 'tedlium-spk', '-s',
+                                          '3'])}
+    line = {'phase': 'cli'}
+    for name, (c, extra) in runs.items():
+        out = os.path.join(WORK, f'cli_out_{name}')
+        proc, seconds = _run_cli('gradtts_tpu_torch.cli.inference', [
+            '-f', texts, '-c', c, '-o', out, '-t', str(STEPS), *extra])
+        print(proc.stdout, end='')
+        line[name] = {'args': extra, 'seconds': seconds,
+                      'outputs': _cli_outputs(out, 3, '--vocoder' in extra)}
+    emit(line)
 
 
-# ---- phase 5 ---------------------------------------------------------------
+# ---- synth ------------------------------------------------------------------
 
 
 def phase_synth(device, card):
@@ -951,63 +1036,45 @@ def phase_synth(device, card):
     return counts
 
 
-# ---- phase 6 ---------------------------------------------------------------
+# ---- train_slice ------------------------------------------------------------
 
 # GPU vs CPU, f32 with TF32 off: the losses are means over ~27k squared U-Net
-# outputs (~1e-5 relative apart, as in phase 3); each grad within 1e-3 of its
-# tensor's largest value, since the backward sums over many more terms in
-# other orders. The key biases of the encoder's attention have an exact
+# outputs (~1e-5 relative apart, as in phase slice); each grad within 1e-3
+# of its tensor's largest value, since the backward sums over many more
+# terms in other orders. The key biases of the encoder's attention have an exact
 # grad of zero (the softmax cancels a shift of a whole score row), so both
 # sides hold rounding noise there: each below 1e-7 of the largest grad
 TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL = 1e-4, 1e-3
 
 
-def phase_train_slice(device, ckpt):
+def _gpu_vs_cpu_loss(make_model, device, batch, what, **kw):
+    """compute_loss + backward of ``make_model(dev)`` on both devices with
+    the same crop offsets, diffusion times and noise (``kw``). Returns
+    (line entries, checks) at TRAIN_LOSS_RTOL and TRAIN_GRAD_TOL, the MAS
+    paths equal and the kernels launched as TRAIN_COUNTS on the GPU and
+    never on the CPU."""
     import numpy as np
     import torch
-    from gradtts_tpu_torch.config import get_config
-    from gradtts_tpu_torch.models.tts import GradTTS, compute_loss
-
-    cfg = get_config('ljspeech')
-    rng = np.random.default_rng(3)
-    bsz, t_x, t_y = 2, 64, 256
-    x = torch.from_numpy(rng.integers(1, cfg.n_vocab, (bsz, t_x)))
-    x_lengths = torch.tensor([t_x, 40])
-    x[1, 40:] = 0
-    y_lengths = torch.tensor([t_y, 200])
-    y = torch.from_numpy(rng.standard_normal(
-        (bsz, t_y, cfg.data.n_feats)).astype(np.float32) - 5.0)
-    y[1, 200:] = 0
-    offset = torch.tensor([40, 11])
-    t = torch.tensor([0.3, 0.8])
-    z = torch.from_numpy(rng.standard_normal(
-        (bsz, cfg.out_size, cfg.data.n_feats)).astype(np.float32))
+    from gradtts_tpu_torch.models.tts import compute_loss
     results = []
     for dev in (device, torch.device('cpu')):
-        model = GradTTS.from_config(cfg)
-        model.load_state_dict(torch.load(ckpt, weights_only=True),
-                              strict=True)
-        model = model.to(dev).eval()
-        args = [a.to(dev) for a in (x, x_lengths, y, y_lengths)]
+        model = make_model(dev)
         reset_counts()
         t0 = time.perf_counter()
-        res = compute_loss(model, *args, out_size=cfg.out_size,
-                           offset=offset.to(dev), t=t.to(dev), z=z.to(dev))
+        res = compute_loss(model, *(a.to(dev) for a in batch),
+                           **_on(dev, kw))
         (res.dur_loss + res.prior_loss + res.diff_loss).backward()
         grads = {n: p.grad.cpu() for n, p in model.named_parameters()
                  if p.grad is not None}
-        results.append(([float(v.detach()) for v in res[:3]], res.attn.cpu(), grads,
-                         read_counts(), time.perf_counter() - t0))
+        results.append(([float(v.detach()) for v in res[:3]], res.attn.cpu(),
+                        grads, read_counts(), time.perf_counter() - t0))
     (g_loss, g_attn, g_grads, counts, g_s), \
         (c_loss, c_attn, c_grads, cpu_counts, c_s) = results
-    require(set(g_grads) == set(c_grads), 'train_slice: the GPU and the CPU '
-                                          'gave grads to other parameters')
     largest = max(float(v.abs().max()) for v in c_grads.values())
-    worst, worst_name, noise = 0.0, None, 0.0
+    worst, worst_name, noise, finite = 0.0, None, 0.0, True
     for name, want in c_grads.items():
-        got = g_grads[name]
-        require(bool(torch.isfinite(got).all()), f'train_slice: {name} grad '
-                                                 'not finite')
+        got = g_grads.get(name, torch.zeros_like(want))
+        finite = finite and bool(torch.isfinite(got).all())
         if name.endswith('conv_k.bias'):
             noise = max(noise, float(got.abs().max()),
                         float(want.abs().max()))
@@ -1017,33 +1084,57 @@ def phase_train_slice(device, ckpt):
         if frac > worst:
             worst, worst_name = frac, name
     loss_rel = [abs(a - b) / abs(b) for a, b in zip(g_loss, c_loss)]
-    line = {'phase': 'train_slice', 'losses_gpu': g_loss,
-            'losses_cpu': c_loss, 'loss_rel_err': loss_rel,
-            'loss_rtol': TRAIN_LOSS_RTOL, 'attn_equal':
-            bool(torch.equal(g_attn, c_attn)), 'attn_cells':
-            int(g_attn.sum()), 'grad_tensors': len(c_grads),
-            'grad_worst_frac': worst, 'grad_worst_name': worst_name,
-            'grad_tol': TRAIN_GRAD_TOL, 'zero_grad_noise_frac':
-            noise / largest, 'gpu_launches': counts,
-            'cpu_launches': cpu_counts, 'gpu_s': g_s, 'cpu_s': c_s}
-    emit(line)
-    require(all(np.isfinite(g_loss)), 'train_slice: loss not finite')
-    require(max(loss_rel) <= TRAIN_LOSS_RTOL,
-            f'train_slice: losses {g_loss} vs {c_loss}')
-    require(line['attn_equal'], 'train_slice: MAS paths differ')
-    require(worst <= TRAIN_GRAD_TOL, f'train_slice: grad of {worst_name} '
-                                     f'off by {worst} of its largest value')
-    require(noise <= 1e-7 * largest, 'train_slice: a key bias grad is not '
-                                     'rounding noise')
-    require(counts == TRAIN_COUNTS, f'train_slice: GPU launches {counts}')
-    require(not any(cpu_counts.values()),
-            'train_slice: the CPU run launched kernels')
+    entry = {'losses_gpu': g_loss, 'losses_cpu': c_loss,
+             'loss_rel_err': loss_rel, 'loss_rtol': TRAIN_LOSS_RTOL,
+             'attn_equal': bool(torch.equal(g_attn, c_attn)),
+             'attn_cells': int(g_attn.sum()), 'grad_tensors': len(c_grads),
+             'grad_worst_frac': worst, 'grad_worst_name': worst_name,
+             'grad_tol': TRAIN_GRAD_TOL, 'zero_grad_noise_frac':
+             noise / largest, 'gpu_launches': counts,
+             'cpu_launches': cpu_counts, 'gpu_s': g_s, 'cpu_s': c_s}
+    checks = [
+        (set(g_grads) == set(c_grads), f'{what}: the GPU and the CPU gave '
+                                       'grads to other parameters'),
+        (finite, f'{what}: a grad is not finite'),
+        (all(np.isfinite(g_loss)), f'{what}: loss not finite'),
+        (max(loss_rel) <= TRAIN_LOSS_RTOL,
+         f'{what}: losses {g_loss} vs {c_loss}'),
+        (entry['attn_equal'], f'{what}: MAS paths differ'),
+        (worst <= TRAIN_GRAD_TOL, f'{what}: grad of {worst_name} off by '
+                                  f'{worst} of its largest value'),
+        (noise <= 1e-7 * largest, f'{what}: a key bias grad is not rounding '
+                                  'noise'),
+        (counts == TRAIN_COUNTS, f'{what}: GPU launches {counts}'),
+        (not any(cpu_counts.values()), f'{what}: the CPU run launched '
+                                       'kernels')]
+    return entry, checks
 
 
-# ---- phase 7 ---------------------------------------------------------------
+def phase_train_slice(device, ckpt):
+    import numpy as np
+    import torch
+    from gradtts_tpu_torch.config import get_config
+
+    cfg = get_config('ljspeech')
+    rng = np.random.default_rng(3)
+    x, x_lengths = _slice_batch(cfg, rng)
+    t_y = 256
+    y_lengths = torch.tensor([t_y, 200])
+    y = torch.from_numpy(rng.standard_normal(
+        (2, t_y, cfg.data.n_feats)).astype(np.float32) - 5.0)
+    y[1, 200:] = 0
+    z = torch.from_numpy(rng.standard_normal(
+        (2, cfg.out_size, cfg.data.n_feats)).astype(np.float32))
+    entry, checks = _gpu_vs_cpu_loss(
+        lambda dev: _seeded_model(cfg, ckpt, dev), device,
+        (x, x_lengths, y, y_lengths), 'train_slice', out_size=cfg.out_size,
+        offset=torch.tensor([40, 11]), t=torch.tensor([0.3, 0.8]), z=z)
+    _check({'phase': 'train_slice', **entry}, checks)
+
+
+# ---- train ------------------------------------------------------------------
 
 CORPUS_ITEMS, TRAIN_STEPS = 64, 12
-TRAIN_AUDIO_S = TRAIN_B * CROP * HOP / SR    # audio seconds per step
 
 
 def write_corpus(directory, n_items):
@@ -1086,6 +1177,20 @@ def _run_cli(module, args):
     return proc, time.perf_counter() - t0
 
 
+def _train_log(log_dir, what):
+    """The per-epoch metrics of a training run's train.log, all finite."""
+    epochs = []
+    with open(os.path.join(log_dir, 'train.log'), encoding='utf-8') as f:
+        for ln in f:
+            values = dict(kv.split('=') for kv in re.findall(
+                r'[\w/]+=[-\d.e+naif]+', ln))
+            epochs.append({k: float(v) for k, v in values.items()})
+    require(epochs and all(math.isfinite(v) for e in epochs
+                           for v in e.values()),
+            f'{what}: losses not finite: {epochs}')
+    return epochs
+
+
 def phase_train(device, card):
     import shutil
     import numpy as np
@@ -1099,15 +1204,7 @@ def phase_train(device, card):
                           common + ['--max-steps', str(TRAIN_STEPS)])
     _, resume_s = _run_cli('gradtts_tpu_torch.cli.train',
                            common + ['--max-steps', '1'])
-    epochs = []
-    with open(os.path.join(log_dir, 'train.log'), encoding='utf-8') as f:
-        for ln in f:
-            values = dict(kv.split('=') for kv in re.findall(
-                r'[\w/]+=[-\d.e+naif]+', ln))
-            epochs.append({k: float(v) for k, v in values.items()})
-    require(epochs and all(math.isfinite(v) for e in epochs
-                           for v in e.values()),
-            f'train: losses not finite: {epochs}')
+    epochs = _train_log(log_dir, 'train')
     ckpt = os.path.join(log_dir, 'ckpt', f'step_{TRAIN_STEPS + 1:08d}.pt')
     require(os.path.exists(ckpt), 'train: the resumed run wrote no '
                                   f'{os.path.basename(ckpt)}')
@@ -1128,23 +1225,25 @@ def phase_train(device, card):
         'epochs': epochs})
 
 
-def phase_train_step(device, card, filelist=None, cli=None):
-    """The train step in-process on one collated batch of the corpus
-    (written here when ``filelist`` is None): launches per step, steps/s,
-    audio-s trained per second and the device share. Emits the ``train``
-    line (with the CLI run's figures ``cli``, where given)."""
+def phase_train_step(device, card, filelist=None, cli=None,
+                     preset='ljspeech', phase='train'):
+    """The train step of ``preset`` in-process on one collated batch of the
+    corpus (written here when ``filelist`` is None): launches per step,
+    steps/s, utterances/s, audio-s trained per second and the device
+    share. Emits the ``phase`` line (with the CLI run's figures ``cli``,
+    where given)."""
     import torch
     from gradtts_tpu_torch.config import get_config
-    from gradtts_tpu_torch.data.dataset import BatchCollate, TextMelDataset
+    from gradtts_tpu_torch.data.dataset import (BatchCollate,
+                                                dataset_from_config)
     from gradtts_tpu_torch.models.tts import GradTTS, set_compute_dtype
     from gradtts_tpu_torch.train.loop import batch_to
     from gradtts_tpu_torch.train.state import make_optimizer, train_step
 
     if filelist is None:
         filelist = write_corpus(os.path.join(WORK, 'corpus'), TRAIN_B)
-    cfg = get_config('ljspeech',
-                     **{'data.train_filelist_path': filelist})
-    dataset = TextMelDataset.from_config(cfg)
+    cfg = get_config(preset, **{'data.train_filelist_path': filelist})
+    dataset = dataset_from_config(cfg)
     batch = BatchCollate(cfg.data.x_buckets, cfg.data.y_buckets)(
         [dataset[i] for i in range(TRAIN_B)])
     batch = batch_to(batch, device)
@@ -1165,12 +1264,12 @@ def phase_train_step(device, card, filelist=None, cli=None):
     reset_counts()
     metrics = run()                                 # the main path's run
     counts = read_counts()
-    require(counts == TRAIN_COUNTS, f'train: launches per step {counts}, '
+    require(counts == TRAIN_COUNTS, f'{phase}: launches per step {counts}, '
                                     f'expected {TRAIN_COUNTS}')
     require(all(math.isfinite(float(v)) for v in metrics.values()),
-            f'train: step metrics not finite: {metrics}')
+            f'{phase}: step metrics not finite: {metrics}')
     require(all(p.dtype == torch.float32 for p in model.parameters()),
-            'train: a parameter left f32')
+            f'{phase}: a parameter left f32')
     torch.cuda.reset_peak_memory_stats(device)
     times = []
     for _ in range(10):
@@ -1179,23 +1278,28 @@ def phase_train_step(device, card, filelist=None, cli=None):
         times.append(time.perf_counter() - t0)
     peak = torch.cuda.max_memory_allocated(device)
     per_step = statistics.median(times)
-    share = _device_share(run, per_step * 1e3, 'train')
-    emit({'phase': 'train', 'card': card, 'batch': TRAIN_B, 'crop': CROP,
-          'x_shape': list(batch['x'].shape), 'y_shape': list(batch['y'].shape),
+    share = _device_share(run, per_step * 1e3, phase)
+    audio_s = TRAIN_B * cfg.out_size * cfg.data.hop_length \
+        / cfg.data.sample_rate
+    emit({'phase': phase, 'card': card, 'preset': preset, 'batch': TRAIN_B,
+          'crop': cfg.out_size, 'x_shape': list(batch['x'].shape),
+          'y_shape': list(batch['y'].shape),
+          'speakers': batch['spk'].tolist() if 'spk' in batch else None,
           'dtype': 'bfloat16 compute, float32 parameters',
           **(cli or {}), 'seconds_per_step': per_step,
           'seconds_all': times, 'steps_per_s': 1 / per_step,
-          'audio_s_per_step': TRAIN_AUDIO_S,
-          'audio_s_trained_per_s': TRAIN_AUDIO_S / per_step,
+          'utterances_per_s': TRAIN_B / per_step,
+          'audio_s_per_step': audio_s,
+          'audio_s_trained_per_s': audio_s / per_step,
           'launches_per_step': counts, 'peak_memory_gib': peak / 2 ** 30,
           'metrics': {k: float(v) for k, v in metrics.items()}, **share})
     return counts
 
 
-# ---- phase 8 ---------------------------------------------------------------
+# ---- likelihood_slice -------------------------------------------------------
 
 # GPU vs CPU, f32 with TF32 off, the same probe: each drift evaluation
-# differs by ~1e-5 relative (phase 3), and the random model's flow grows
+# differs by ~1e-5 relative (phase slice), and the random model's flow grows
 # that over the 4 steps; scores are sums of ~41k terms that partly cancel:
 # 1e-3 relative on score, prior_logp and delta_logp, and 1e-3 of max |z|
 LIK_SLICE_RTOL = 1e-3
@@ -1224,11 +1328,51 @@ def _seeded_model(cfg, ckpt, device):
     return model.to(device).eval()
 
 
+def _gpu_vs_cpu_score(make_model, device, batch, eps, what, **kw):
+    """A LIK_SLICE_STEPS-step score_batch of ``make_model(dev)`` on both
+    devices with the same probe ``eps``. Returns (line entries, checks) at
+    LIK_SLICE_RTOL, the kernels launched as likelihood_counts on the GPU
+    and never on the CPU."""
+    import torch
+    from gradtts_tpu_torch.nbest.scoring import score_batch
+    outs = []
+    for dev in (device, torch.device('cpu')):
+        model = make_model(dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        res = score_batch(model, *(a.to(dev) for a in batch),
+                          n_euler=LIK_SLICE_STEPS, epsilon=eps.to(dev),
+                          **_on(dev, kw))
+        outs.append(({k: getattr(res, k).cpu() for k in (
+            'score', 'prior_logp', 'delta_logp', 'z')}, read_counts(),
+            time.perf_counter() - t0))
+    (g, counts, g_s), (c, cpu_counts, c_s) = outs
+    rel = {k: float(((g[k] - c[k]).abs() / c[k].abs()).max())
+           for k in ('score', 'prior_logp', 'delta_logp')}
+    z_frac = float((g['z'] - c['z']).abs().max() / c['z'].abs().max())
+    entry = {'steps': LIK_SLICE_STEPS, 'score_gpu': g['score'].tolist(),
+             'score_cpu': c['score'].tolist(),
+             'prior_logp_gpu': g['prior_logp'].tolist(),
+             'delta_logp_gpu': g['delta_logp'].tolist(), 'rel_err': rel,
+             'z_err_of_max': z_frac, 'rtol': LIK_SLICE_RTOL,
+             'gpu_launches': counts, 'cpu_launches': cpu_counts,
+             'gpu_s': g_s, 'cpu_s': c_s}
+    checks = [
+        (all(bool(torch.isfinite(v).all()) for v in g.values()),
+         f'{what}: GPU result not finite'),
+        (max(rel.values()) <= LIK_SLICE_RTOL and z_frac <= LIK_SLICE_RTOL,
+         f'{what}: GPU vs CPU {rel}, z {z_frac}'),
+        (counts == likelihood_counts(LIK_SLICE_STEPS),
+         f'{what}: GPU launches {counts}'),
+        (not any(cpu_counts.values()), f'{what}: the CPU run launched '
+                                       'kernels')]
+    return entry, checks
+
+
 def phase_likelihood_slice(device, ckpt):
     import numpy as np
     import torch
     from gradtts_tpu_torch.config import get_config
-    from gradtts_tpu_torch.nbest.scoring import score_batch
 
     cfg = get_config('ljspeech')
     rng = np.random.default_rng(5)
@@ -1239,49 +1383,34 @@ def phase_likelihood_slice(device, ckpt):
     x[1, 40:] = 0
     eps = torch.from_numpy((rng.integers(0, 2, y.shape) * 2 - 1).astype(
         np.float32))
-    results = []
-    for dev in (device, torch.device('cpu')):
-        model = _seeded_model(cfg, ckpt, dev)
-        reset_counts()
-        t0 = time.perf_counter()
-        res = score_batch(model, *(a.to(dev) for a in (x, x_lengths, y,
-                                                       y_lengths)),
-                          n_euler=LIK_SLICE_STEPS, epsilon=eps.to(dev))
-        res = {k: getattr(res, k).cpu() for k in ('score', 'prior_logp',
-                                                   'delta_logp', 'z')}
-        results.append((res, read_counts(), time.perf_counter() - t0))
-    (g, counts, g_s), (c, cpu_counts, c_s) = results
-    rel = {k: float(((g[k] - c[k]).abs() / c[k].abs()).max())
-           for k in ('score', 'prior_logp', 'delta_logp')}
-    z_frac = float((g['z'] - c['z']).abs().max() / c['z'].abs().max())
-    emit({'phase': 'likelihood_slice', 'steps': LIK_SLICE_STEPS,
-          'score_gpu': g['score'].tolist(), 'score_cpu': c['score'].tolist(),
-          'prior_logp_gpu': g['prior_logp'].tolist(),
-          'delta_logp_gpu': g['delta_logp'].tolist(), 'rel_err': rel,
-          'z_err_of_max': z_frac, 'rtol': LIK_SLICE_RTOL,
-          'gpu_launches': counts, 'cpu_launches': cpu_counts, 'gpu_s': g_s,
-          'cpu_s': c_s})
-    require(all(bool(torch.isfinite(v).all()) for v in g.values()),
-            'likelihood_slice: GPU result not finite')
-    require(max(rel.values()) <= LIK_SLICE_RTOL and z_frac <= LIK_SLICE_RTOL,
-            f'likelihood_slice: GPU vs CPU {rel}, z {z_frac}')
-    require(counts == likelihood_counts(LIK_SLICE_STEPS),
-            f'likelihood_slice: GPU launches {counts}')
-    require(not any(cpu_counts.values()),
-            'likelihood_slice: the CPU run launched kernels')
+    entry, checks = _gpu_vs_cpu_score(
+        lambda dev: _seeded_model(cfg, ckpt, dev), device,
+        (x, x_lengths, y, y_lengths), eps, 'likelihood_slice')
+    _check({'phase': 'likelihood_slice', **entry}, checks)
 
 
-# ---- phase 9 ---------------------------------------------------------------
+# ---- nbest_cli --------------------------------------------------------------
 
 NBEST_UTTS, NBEST_N = 4, 2
 
 
-def phase_nbest_cli(ckpt):
-    import numpy as np
-    from gradtts_tpu_torch.nbest import make_synthetic_n_best, save_n_best
+def phase_nbest_cli(ckpt, spk_ckpt):
+    """cli.nbest score, compile and rescore with --preset ljspeech on
+    22.05 kHz wavs; then score alone with the CLI's default preset
+    (tedlium-spk) on a 16 kHz speaker filelist (``path|text|speaker``),
+    its shards compiled in-process."""
+    _nbest_cli(ckpt, 'nbest', write_corpus, ['--preset', 'ljspeech'])
+    _nbest_cli(spk_ckpt, 'nbest_spk', write_speaker_corpus, [],
+               score_only=True)
 
-    directory = os.path.join(WORK, 'nbest')
-    filelist = write_corpus(os.path.join(directory, 'wavs'), NBEST_UTTS)
+
+def _nbest_cli(ckpt, name, corpus, preset_args, score_only=False):
+    import numpy as np
+    from gradtts_tpu_torch.nbest import (compile_scores,
+                                         make_synthetic_n_best, save_n_best)
+
+    directory = os.path.join(WORK, name)
+    filelist = corpus(os.path.join(directory, 'wavs'), NBEST_UTTS)
     with open(filelist, encoding='utf-8') as f:
         texts = [ln.rstrip('\n').split('|')[1] for ln in f]
     # hypothesis 0 is the transcript, 1 drops its second word
@@ -1292,36 +1421,41 @@ def phase_nbest_cli(ckpt):
     out_dir = os.path.join(directory, 'scores')
     npy = os.path.join(directory, 'scores.npy')
     if os.path.isdir(out_dir):
-        for name in os.listdir(out_dir):
-            os.unlink(os.path.join(out_dir, name))
+        for fname in os.listdir(out_dir):
+            os.unlink(os.path.join(out_dir, fname))
     module = 'gradtts_tpu_torch.cli.nbest'
     proc, score_s = _run_cli(module, [
         'score', '--n-best', pkl, '--checkpoint', ckpt, '--filelist',
-        filelist, '--out-dir', out_dir, '--preset', 'ljspeech', '-N',
-        str(NBEST_N), '--n-euler', str(STEPS)])
+        filelist, '--out-dir', out_dir, *preset_args, '-N', str(NBEST_N),
+        '--n-euler', str(STEPS)])
     print(proc.stdout, end='')
-    _, compile_s = _run_cli(module, ['compile', '--directory', out_dir, '-I',
-                                     str(NBEST_UTTS), '-N', str(NBEST_N),
-                                     '--out', npy])
-    rescored, _ = _run_cli(module, ['rescore', '--n-best', pkl,
-                                    '--diff-scores', npy, '-n', str(NBEST_N),
-                                    '--weight', 'diffusion_score=-0.001'])
+    line = {'phase': 'nbest_cli', 'preset': preset_args[1:] or 'default',
+            'utterances': NBEST_UTTS, 'N': NBEST_N, 'euler_steps': STEPS,
+            'score_seconds': score_s}
+    if score_only:
+        compile_scores(out_dir, NBEST_UTTS, NBEST_N, npy)
+    else:
+        _, line['compile_seconds'] = _run_cli(module, [
+            'compile', '--directory', out_dir, '-I', str(NBEST_UTTS), '-N',
+            str(NBEST_N), '--out', npy])
+        rescored, _ = _run_cli(module, [
+            'rescore', '--n-best', pkl, '--diff-scores', npy, '-n',
+            str(NBEST_N), '--weight', 'diffusion_score=-0.001'])
+        line['rescored_wer'] = json.loads(rescored.stdout)['wer']
     mat = np.load(npy)
     shards = sorted(f for f in os.listdir(out_dir) if f.endswith('.json'))
-    result = json.loads(rescored.stdout)
-    emit({'phase': 'nbest_cli', 'utterances': NBEST_UTTS, 'N': NBEST_N,
-          'euler_steps': STEPS, 'pairs_scored': len(shards),
-          'scores': mat.tolist(), 'rescored_wer': result['wer'],
-          'score_seconds': score_s, 'compile_seconds': compile_s})
+    emit({**line, 'pairs_scored': len(shards), 'scores': mat.tolist()})
     require(len(shards) == NBEST_UTTS * NBEST_N,
-            f'nbest_cli: {len(shards)} score shards')
+            f'nbest_cli {name}: {len(shards)} score shards')
     require(mat.shape == (NBEST_UTTS, NBEST_N) and np.isfinite(mat).all()
-            and (mat != 0).all(), 'nbest_cli: a pair has no finite score')
+            and (mat != 0).all(), f'nbest_cli {name}: a pair has no finite '
+                                  'score')
     require(bool((mat[:, 0] != mat[:, 1]).all()),
-            'nbest_cli: two hypotheses of one utterance scored the same')
+            f'nbest_cli {name}: two hypotheses of one utterance scored the '
+            'same')
 
 
-# ---- phase 10 --------------------------------------------------------------
+# ---- likelihood -------------------------------------------------------------
 
 
 def phase_likelihood(device, card, ckpt):
@@ -1404,7 +1538,7 @@ def _k1_tangent_share(device):
     return {'kernels': n_kernels * LIK_STEPS, 'device_ms': busy * LIK_STEPS}
 
 
-# ---- phase 11 --------------------------------------------------------------
+# ---- adaptive ---------------------------------------------------------------
 
 ADAPTIVE_TOL, ADAPTIVE_MAX_STEPS = 1e-2, 280
 
@@ -1431,6 +1565,383 @@ def phase_adaptive(device, ckpt):
           'seconds': time.perf_counter() - t0})
     require(bool(torch.isfinite(res.score).all()),
             'adaptive: score not finite')
+
+
+# ---- the samplers, the speaker set-ups and the vocoder ----------------------
+
+# every speaker set-up of the JAX package, each at its preset's full width:
+# a speaker-id table (tedlium-spk: 675 x 128), external speaker vectors
+# (tedlium: 192-d) and the upstream encoder-side concat (libri-tts with
+# encoder_speaker: a 192 + 64 = 256-wide encoder)
+SPEAKER_SETUPS = (('tedlium-spk', {}), ('tedlium', {}),
+                  ('libri-tts', {'encoder_speaker': True}))
+# GPU vs CPU, f32 with TF32 off: the HiFi-GAN waveform (in [-1, 1]) passes
+# ~20 cuDNN and oneDNN convolutions a sample, each ~1e-6 relative apart
+VOCODER_TOL = 1e-4
+# bf16 against f32 on the card: tests/test_hifigan.py's bounds
+VOCODER_BF16_MAX, VOCODER_BF16_MEAN = 0.05, 5e-3
+
+
+def phase_samplers_slice(device, ckpt):
+    """The slice model (ljspeech, B 2, Tx 64, Ty 256, f32): 10-step
+    ``stoc`` Euler with the same per-step draws on both devices, and
+    10-step DPM-Solver-2M, each on the GPU against the CPU."""
+    import numpy as np
+    import torch
+    from gradtts_tpu_torch.config import get_config
+
+    cfg = get_config('ljspeech')
+    rng = np.random.default_rng(11)
+    x, x_lengths = _slice_batch(cfg, rng)
+    t_y, n_feats = 256, cfg.data.n_feats
+    noise = torch.from_numpy(rng.standard_normal(
+        (2, t_y, n_feats)).astype(np.float32))
+    draws = torch.from_numpy(rng.standard_normal(
+        (STEPS, 2, t_y, n_feats)).astype(np.float32))
+    line, checks = {'phase': 'samplers_slice', 'steps': STEPS}, []
+    for name, kw in (('stoc_euler', {'stoc': True, 'stoc_noise': draws}),
+                     ('dpm', {'sampler': 'dpm'})):
+        line[name], c = _gpu_vs_cpu_synthesis(
+            lambda dev: _seeded_model(cfg, ckpt, dev), device, x, x_lengths,
+            t_y, f'samplers_slice {name}', noise=noise, **kw)
+        checks += c
+    _check(line, checks)
+
+
+def _speaker_inputs(cfg, rng, bsz=2):
+    """Distinct speaker ids of the table, or 192-d vectors."""
+    import numpy as np
+    import torch
+    if cfg.n_spks > 1:
+        return torch.from_numpy(rng.choice(cfg.n_spks, bsz, replace=False))
+    return torch.from_numpy(rng.standard_normal(
+        (bsz, cfg.spk_emb_dim)).astype(np.float32))
+
+
+def phase_speakers_slice(device):
+    """Each speaker set-up at its preset's full width, weights drawn from a
+    seed: 10-step synthesis, compute_loss + backward (its preset's crop)
+    and a 4-step score_batch with one probe, each on the GPU against the
+    CPU. Returns the seeded tedlium-spk checkpoint."""
+    import numpy as np
+    import torch
+    from gradtts_tpu_torch.config import get_config
+    from gradtts_tpu_torch.models.tts import GradTTS
+
+    spk_ckpt = None
+    for k, (preset, over) in enumerate(SPEAKER_SETUPS):
+        cfg = get_config(preset, **over)
+        sd = seeded_state_dict(GradTTS.from_config(cfg), seed=20 + k)
+        if preset == 'tedlium-spk':
+            spk_ckpt = os.path.join(WORK, 'tedlium_spk_seeded.pt')
+            torch.save(sd, spk_ckpt)
+
+        def make_model(dev, cfg=cfg, sd=sd):
+            model = GradTTS.from_config(cfg)
+            model.load_state_dict(sd, strict=True)
+            return model.to(dev).eval()
+
+        rng = np.random.default_rng(30 + k)
+        x, x_lengths = _slice_batch(cfg, rng)
+        spk = _speaker_inputs(cfg, rng)
+        t_y, n_feats = 256, cfg.data.n_feats
+        line = {'phase': 'speakers_slice', 'preset': preset, **over,
+                'n_spks': cfg.n_spks, 'spk_emb_dim': cfg.spk_emb_dim,
+                'params': sum(v.numel() for v in sd.values()),
+                'spk': spk.tolist() if cfg.n_spks > 1 else 'vectors'}
+        noise = torch.from_numpy(rng.standard_normal(
+            (2, t_y, n_feats)).astype(np.float32))
+        line['synthesis'], checks = _gpu_vs_cpu_synthesis(
+            make_model, device, x, x_lengths, t_y,
+            f'speakers_slice {preset} synthesis', noise=noise, spk=spk)
+        y = torch.from_numpy(rng.standard_normal(
+            (2, t_y, n_feats)).astype(np.float32) - 5.0)
+        y[1, 200:] = 0
+        y_lengths = torch.tensor([t_y, 200])
+        z = torch.from_numpy(rng.standard_normal(
+            (2, cfg.out_size, n_feats)).astype(np.float32))
+        line['loss'], c = _gpu_vs_cpu_loss(
+            make_model, device, (x, x_lengths, y, y_lengths),
+            f'speakers_slice {preset} loss', out_size=cfg.out_size,
+            offset=torch.tensor([40, 11]), t=torch.tensor([0.3, 0.8]), z=z,
+            spk=spk)
+        checks += c
+        eps = torch.from_numpy((rng.integers(0, 2, y.shape) * 2 - 1).astype(
+            np.float32))
+        line['score'], c = _gpu_vs_cpu_score(
+            make_model, device, (x, x_lengths, y, y_lengths), eps,
+            f'speakers_slice {preset} score', spk=spk)
+        checks += c
+        _check(line, checks)
+    return spk_ckpt
+
+
+def _seeded_vocoder():
+    """The V1 generator with every weight and bias drawn from a seed."""
+    from gradtts_tpu_torch.models.hifigan import Generator
+    vocoder = Generator()
+    vocoder.load_state_dict(seeded_state_dict(vocoder, seed=40), strict=True)
+    return vocoder
+
+
+def phase_vocoder_slice(device):
+    """The HiFi-GAN V1 generator (512 initial channels) on B 2 x 256 frames:
+    f32 on the GPU against the CPU within VOCODER_TOL, bf16 against f32 on
+    the GPU within the JAX package's bf16 bounds. Returns a reference-
+    layout checkpoint of it (weight_g / weight_v under 'generator')."""
+    import numpy as np
+    import torch
+
+    vocoder = _seeded_vocoder().eval()
+    mel = torch.from_numpy((np.random.default_rng(41).standard_normal(
+        (2, 256, 80)) * 2.0 - 5.0).astype(np.float32))
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        want = vocoder(mel)
+        c_s = time.perf_counter() - t0
+        gpu = vocoder.to(device)
+        got = gpu(mel.to(device))
+        gpu.compute_dtype = torch.bfloat16
+        got16 = gpu(mel.to(device)).float()
+        torch.cuda.synchronize()
+    err = float((got.cpu() - want).abs().max())
+    d16 = (got16 - got).abs()
+    line = {'phase': 'vocoder_slice', 'batch': 2, 'frames': 256,
+            'samples': list(got.shape), 'f32_max_abs_err': err,
+            'f32_tol': VOCODER_TOL, 'wave_max_abs': float(want.abs().max()),
+            'wave_mean_abs': float(want.abs().mean()),
+            'bf16_max_abs_diff': float(d16.max()),
+            'bf16_mean_abs_diff': float(d16.mean()), 'cpu_s': c_s}
+    emit(line)
+    require(tuple(got.shape) == (2, 256 * 256) and bool(
+        torch.isfinite(got).all()), 'vocoder_slice: malformed waveform')
+    require(err <= VOCODER_TOL, f'vocoder_slice: f32 GPU vs CPU {err}')
+    require(line['bf16_max_abs_diff'] < VOCODER_BF16_MAX
+            and line['bf16_mean_abs_diff'] < VOCODER_BF16_MEAN,
+            f'vocoder_slice: bf16 vs f32 {line}')
+    sd = {}
+    for key, w in _seeded_vocoder().state_dict().items():
+        if key.endswith('.weight'):
+            base = key[:-len('.weight')]
+            sd[base + '.weight_v'] = w
+            sd[base + '.weight_g'] = w.pow(2).sum(
+                tuple(range(1, w.ndim)), keepdim=True).sqrt()
+        else:
+            sd[key] = w
+    path = os.path.join(WORK, 'hifigan_seeded.pt')
+    torch.save({'generator': sd}, path)
+    return path
+
+
+def _timed_synthesis(device, card, phase, preset, steps, **kw):
+    """bf16 synthesis at B 8, Tx 128, Ty 768 of the seeded ``preset``:
+    launches per call (counts set to 0 just before the main path's run,
+    read just after), the median of 5 calls, audio-s/s at the preset's
+    sample rate and the device share. Returns (line, run, model, counts)."""
+    import numpy as np
+    import torch
+    from gradtts_tpu_torch.config import get_config
+    from gradtts_tpu_torch.models.tts import (GradTTS, set_compute_dtype,
+                                              synthesize)
+
+    cfg = get_config(preset)
+    model = GradTTS.from_config(cfg)
+    model.load_state_dict(seeded_state_dict(model, seed=0), strict=True)
+    model = set_compute_dtype(model.to(device).eval(), torch.bfloat16)
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.integers(1, cfg.n_vocab, (B, TX))).to(device)
+    x_lengths = torch.full((B,), TX, device=device)
+    spk = (torch.from_numpy(rng.integers(0, cfg.n_spks, B)).to(device)
+           if cfg.n_spks > 1 else None)
+    gen = torch.Generator(device=device).manual_seed(0)
+
+    def run():
+        res = synthesize(model, x, x_lengths, steps, TY, temperature=1.5,
+                         generator=gen, spk=spk, **kw)
+        torch.cuda.synchronize()
+        return res
+
+    run()                                           # warm-up
+    reset_counts()
+    res = run()                                     # the main path's run
+    counts = read_counts()
+    want = {k: v * steps // STEPS for k, v in EXPECTED_COUNTS.items()}
+    require(counts == want, f'{phase}: launches per synthesis {counts}, '
+                            f'expected {want}')
+    require(bool(torch.isfinite(res.decoder_outputs).all()),
+            f'{phase}: mel not finite')
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        run()
+        times.append(time.perf_counter() - t0)
+    per_call = statistics.median(times)
+    audio_s = B * TY * cfg.data.hop_length / cfg.data.sample_rate
+    line = {'phase': phase, 'card': card, 'preset': preset, 'batch': B,
+            'tx': TX, 'ty': TY, 'steps': steps, 'dtype': 'bfloat16',
+            'sample_rate': cfg.data.sample_rate,
+            'seconds_per_call': per_call, 'seconds_all': times,
+            'audio_s_per_s': audio_s / per_call,
+            'launches_per_synthesis': counts}
+    return line, run, per_call, counts
+
+
+def phase_dpm8(device, card):
+    """bench_suite.py's dpm8: 8-step DPM-Solver-2M, ljspeech, B 8 x 768."""
+    line, run, per_call, counts = _timed_synthesis(device, card, 'dpm8',
+                                                   'ljspeech', 8,
+                                                   sampler='dpm')
+    emit({**line, **_device_share(run, per_call * 1e3, 'dpm8')})
+    return counts
+
+
+def phase_multispeaker(device, card):
+    """bench_suite.py's multispeaker: libri-tts (247 speakers, 24 kHz), B 8
+    x 768, 10-step Euler, one speaker id an item."""
+    line, run, per_call, counts = _timed_synthesis(
+        device, card, 'multispeaker', 'libri-tts', STEPS)
+    emit({**line, **_device_share(run, per_call * 1e3, 'multispeaker')})
+    return counts
+
+
+def phase_waveform(device, card):
+    """bench_suite.py's waveform: 50-step Euler synthesis then the V1
+    vocoder, bf16, B 8 x 768 frames, per call; then the vocoder alone on
+    the same shape in f32 (TF32 off) and bf16: times real time and its
+    device time by kernel family (one profiled call)."""
+    import numpy as np
+    import torch
+    from gradtts_tpu_torch.config import get_config
+
+    cfg = get_config('ljspeech')
+    vocoder = _seeded_vocoder().to(device).eval()
+    vocoder.compute_dtype = torch.bfloat16
+    line, run_mel, mel_s, counts = _timed_synthesis(device, card,
+                                                    'waveform', 'ljspeech',
+                                                    50)
+
+    def run():
+        res = run_mel()
+        with torch.no_grad():
+            wav = vocoder(res.decoder_outputs)
+        torch.cuda.synchronize()
+        return wav
+
+    reset_counts()
+    wav = run()
+    require(read_counts() == counts, 'waveform: the vocoder launched a hand '
+                                     'kernel')
+    require(tuple(wav.shape) == (B, TY * 256)
+            and bool(torch.isfinite(wav).all()), 'waveform: malformed wave')
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        run()
+        times.append(time.perf_counter() - t0)
+    per_call = statistics.median(times)
+    audio_s = B * TY * HOP / SR
+    line.update(seconds_per_call=per_call, seconds_all=times,
+                audio_s_per_s=audio_s / per_call,
+                mel_seconds_per_call=mel_s)
+    mel = torch.from_numpy((np.random.default_rng(0).standard_normal(
+        (B, TY, cfg.data.n_feats)) * 2.0 - 5.0).astype(np.float32)).to(device)
+    line['vocoder_alone'] = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        vocoder.compute_dtype = dtype
+
+        def run_voc():
+            with torch.no_grad():
+                out = vocoder(mel)
+            torch.cuda.synchronize()
+            return out
+
+        run_voc()
+        vt = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            run_voc()
+            vt.append(time.perf_counter() - t0)
+        v_s = statistics.median(vt)
+        share = _device_share(run_voc, v_s * 1e3, 'waveform vocoder')
+        line['vocoder_alone'][str(dtype).split('.')[1]] = {
+            'seconds_per_call': v_s, 'x_real_time': audio_s / v_s,
+            'device_busy_ms': share['device_busy_ms'],
+            'device_idle_share': share['device_idle_share'],
+            'device_kernels': share['device_kernels'],
+            'family_ms': share['family_ms'],
+            'top_device_ms': share['top_device_ms']}
+    emit(line)
+    return counts
+
+
+# ---- train_spk -------------------------------------------------------------
+
+SPK_CORPUS_ITEMS, SPK_TRAIN_STEPS = 32, 4
+
+
+def write_speaker_corpus(directory, n_items, n_spks=675, sr=16000):
+    """``n_items`` 16 kHz wavs (a sine plus noise) of bench_suite.py:143's
+    ~5.5 s utterances: 344 mel frames each, and a text of the ljspeech
+    training filelist whose token ids (blanks interspersed) number 129-192,
+    so a batch fills the 192 x 384 bucket; their ``path|text|speaker``
+    filelist, speakers drawn from the preset's 675."""
+    import wave
+    import numpy as np
+    from gradtts_tpu_torch.text import (CMUDict, intersperse_blank,
+                                        text_to_sequence)
+    from gradtts_tpu_torch.text.symbols import symbols
+    os.makedirs(directory, exist_ok=True)
+    cmu = CMUDict(os.path.join(REPO, 'resources', 'cmu_dictionary'))
+    texts = []
+    with open(os.path.join(REPO, 'resources', 'filelists', 'ljspeech',
+                           'train.txt'), encoding='utf-8') as f:
+        for ln in f:
+            text = ln.rstrip('\n').split('|')[1]
+            n = len(intersperse_blank(text_to_sequence(text, dictionary=cmu),
+                                      len(symbols)))
+            if 128 < n <= 192:
+                texts.append(text)
+            if len(texts) == n_items:
+                break
+    rng = np.random.default_rng(12)
+    lines = []
+    for i, text in enumerate(texts):
+        tt = np.arange(344 * HOP) / sr
+        wav = (0.3 * np.sin(2 * np.pi * rng.uniform(100, 400) * tt)
+               + 0.05 * rng.standard_normal(tt.shape))
+        path = os.path.join(directory, f'{i:03d}.wav')
+        with wave.open(path, 'wb') as w:
+            w.setnchannels(1)
+            w.setsampwidth(2)
+            w.setframerate(sr)
+            w.writeframes((wav * 32767).astype('<i2').tobytes())
+        lines.append(f'{path}|{text}|{int(rng.integers(0, n_spks))}')
+    filelist = os.path.join(directory, 'filelist.txt')
+    with open(filelist, 'w', encoding='utf-8') as f:
+        f.write('\n'.join(lines) + '\n')
+    return filelist
+
+
+def phase_train_spk(device, card):
+    """bench_suite.py's train: python -m gradtts_tpu_torch.cli.train
+    --preset tedlium-spk on a synthetic speaker corpus (B 16, 128-frame
+    crops, bf16 compute, f32 parameters, MAS in the loop), a few steps
+    through the CLI; then the step timed in-process."""
+    import shutil
+    filelist = write_speaker_corpus(os.path.join(WORK, 'spk_corpus'),
+                                    SPK_CORPUS_ITEMS)
+    log_dir = os.path.join(WORK, 'train_spk')
+    shutil.rmtree(log_dir, ignore_errors=True)
+    _, train_s = _run_cli('gradtts_tpu_torch.cli.train', [
+        '--preset', 'tedlium-spk', '--log-dir', log_dir, '--max-steps',
+        str(SPK_TRAIN_STEPS), '--set',
+        f'data.train_filelist_path={filelist}'])
+    epochs = _train_log(log_dir, 'train_spk')
+    ckpt = os.path.join(log_dir, 'ckpt', f'step_{SPK_TRAIN_STEPS:08d}.pt')
+    require(os.path.exists(ckpt), f'train_spk: no {os.path.basename(ckpt)}')
+    return phase_train_step(device, card, filelist, {
+        'cli_steps': SPK_TRAIN_STEPS, 'cli_seconds': train_s,
+        'epochs': epochs}, preset='tedlium-spk', phase='train_spk')
 
 
 HAND_KERNELS = ('gn_stats_kernel', 'gn_apply_kernel', 'la_stats_kernel',
@@ -1539,20 +2050,25 @@ def main():
         phase_build()
         stats = phase_kernels(device)
         ckpt = phase_slice(device)
-        phase_cli(ckpt)
-        synth_counts = phase_synth(device, card)
+        phase_samplers_slice(device, ckpt)
+        spk_ckpt = phase_speakers_slice(device)
+        vocoder_ckpt = phase_vocoder_slice(device)
+        phase_cli(ckpt, spk_ckpt, vocoder_ckpt)
+        counts = {'synth': phase_synth(device, card)}
+        counts['dpm8'] = phase_dpm8(device, card)
+        counts['waveform'] = phase_waveform(device, card)
+        counts['multispeaker'] = phase_multispeaker(device, card)
         phase_train_slice(device, ckpt)
-        train_counts = phase_train(device, card)
+        counts['train'] = phase_train(device, card)
+        counts['train_spk'] = phase_train_spk(device, card)
         phase_likelihood_slice(device, ckpt)
-        phase_nbest_cli(ckpt)
-        lik_counts = phase_likelihood(device, card, ckpt)
+        phase_nbest_cli(ckpt, spk_ckpt)
+        counts['likelihood'] = phase_likelihood(device, card, ckpt)
         phase_adaptive(device, ckpt)
     except SmokeFailure as e:
         print(f'chip_smoke: FAILED: {e}', file=sys.stderr, flush=True)
         return 1
     kernels = []
-    counts = {'synth': synth_counts, 'train': train_counts,
-              'likelihood': lik_counts}
     for name, st in stats.items():
         # K1-K3 are read on the synthesis path, K4, K5 and MAS on the
         # training path, K6 and K7 on the likelihood path that runs them
@@ -1573,9 +2089,9 @@ def main():
             'launches_per_path': {p: c[name] for p, c in counts.items()},
             'per': PER[path] if name != 'maximum_path'
             else 'one call at [16, 384, 1024], f32'})
+    print(f'# total {time.perf_counter() - t_start:.1f} s', flush=True)
     print(card)
     emit({'kernels': kernels})
-    print(f'# total {time.perf_counter() - t_start:.1f} s', file=sys.stderr)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}), flush=True)

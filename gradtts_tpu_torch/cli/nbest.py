@@ -18,10 +18,10 @@ n_best_list_evaluate.py, analyse_scores.py and its optuna sweep):
       --diff-scores e330.npy -n 10 --trials 500 [--out result.yaml]
 
 ``score`` runs on the GPU unless ``--cpu`` is given, and fails without a
-GPU otherwise. Its default preset is the JAX CLI's ``tedlium-spk``, a
-speaker preset the port refuses so far: pass a single-speaker preset
-(``--preset ljspeech``). ``--out`` (YAML) and ``results`` (pandas) import
-their libraries where they are used.
+GPU otherwise. Its default preset is the JAX CLI's ``tedlium-spk``, whose
+filelist lines are ``wav|text|speaker_id`` (any preset with ``n_spks > 1``
+reads them so). ``--out`` (YAML) and ``results`` (pandas) import their
+libraries where they are used.
 """
 
 import argparse
@@ -40,7 +40,8 @@ def cmd_score(args):
     from gradtts_tpu_torch.cli.inference import (parse_overrides,
                                                  resolve_device)
     from gradtts_tpu_torch.config import get_config
-    from gradtts_tpu_torch.data.dataset import TextMelDataset
+    from gradtts_tpu_torch.data.dataset import (TextMelDataset,
+                                                TextMelSpeakerDataset)
     from gradtts_tpu_torch.models.tts import GradTTS
     from gradtts_tpu_torch.nbest import NBestList, NBestScorer, score_n_best
     from gradtts_tpu_torch.utils.convert import load_checkpoint
@@ -51,12 +52,12 @@ def cmd_score(args):
     model.load_state_dict(load_checkpoint(args.checkpoint), strict=True)
     model = model.to(device).eval()
     d = cfg.data
-    dataset = TextMelDataset(args.filelist, d.cmudict_path,
-                             add_blank=d.add_blank, n_fft=d.n_fft,
-                             n_mels=d.n_feats, sample_rate=d.sample_rate,
-                             hop_length=d.hop_length,
-                             win_length=d.win_length, f_min=d.f_min,
-                             f_max=d.f_max, shuffle=False)
+    ds_cls = TextMelSpeakerDataset if cfg.n_spks > 1 else TextMelDataset
+    dataset = ds_cls(args.filelist, d.cmudict_path, add_blank=d.add_blank,
+                     n_fft=d.n_fft, n_mels=d.n_feats,
+                     sample_rate=d.sample_rate, hop_length=d.hop_length,
+                     win_length=d.win_length, f_min=d.f_min, f_max=d.f_max,
+                     shuffle=False)
     n_best = NBestList.from_pickle(args.n_best)
     shard = None
     if args.shard:

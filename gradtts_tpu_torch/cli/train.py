@@ -1,11 +1,12 @@
 """Training CLI, on the GPU.
 
 Counterpart of gradtts_tpu/cli/train.py (the same flags, without the mesh
-ones). Trains the preset's single-speaker model on its filelist and writes
+ones). Trains the preset's model on its filelist (``wav|text`` lines;
+``wav|text|speaker_id`` for a preset with a speaker table; a speaker-vector
+matrix in ``data.train_spk_path`` for ``n_spks == -1``) and writes
 ``train.log``, TensorBoard scalars and ``ckpt/step_*.pt`` under the log
 directory; a rerun resumes from the latest checkpoint. Runs on ``cuda``
 unless ``--cpu`` is given, and fails when no GPU is present without it.
-Multi-speaker presets are refused (``GradTTS.from_config``).
 
 Usage:
   python -m gradtts_tpu_torch.cli.train --preset ljspeech [--log-dir DIR]

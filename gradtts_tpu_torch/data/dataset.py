@@ -1,16 +1,20 @@
-"""Dataset, batch collation with static-shape buckets, and the data loader.
+"""Datasets, batch collation with static-shape buckets, and the data loader.
 
-The port's own copy of gradtts_tpu/data/dataset.py for single-speaker
-training: ``parse_filelist`` (:31), ``load_wav`` (:36), ``wav_header``
-(:64), ``TextMelDataset`` (:122-193), ``BatchCollate`` (:248-315) and
-``DataLoader`` (:430-578). Mels are computed on the host by numpy worker
-threads; batches are numpy dicts padded to bucketed shapes, so the U-Net
-meets a handful of shapes. Not ported: the speaker datasets, the on-device
+The port's own copy of gradtts_tpu/data/dataset.py: ``parse_filelist``
+(:31), ``load_wav`` (:36), ``wav_header`` (:64), the TED-LIUM text
+normalizer ``transform_txt`` (:109), ``TextMelDataset`` (:122-193), the
+speaker datasets ``TextMelSpeakerDataset`` (:196) and
+``TextMelZeroSpeakerDataset`` (:211) with ``_load_embedding_matrix``
+(:234), ``BatchCollate`` with its ``spk`` field (:248-315), ``DataLoader``
+(:430-578) and ``dataset_from_config`` (:581). Mels are computed on the
+host by numpy worker threads; batches are numpy dicts padded to bucketed
+shapes, so the U-Net meets a handful of shapes. Not ported: the on-device
 mel path (``device_mel``) and the per-host ``shard``.
 """
 
 import queue as queue_mod
 import random
+import re
 import threading
 import wave
 from concurrent.futures import ThreadPoolExecutor
@@ -83,6 +87,23 @@ def wav_header(path):
         return data_size // block_align, sr
 
 
+# --- the TED-LIUM text normalizer ---------------------------------------------
+
+_TED_BRACKETS = [re.compile(p) for p in
+                 (r'\[.*?\]', r'\(.*?\)', r'<.*?>', r'\{.*?\}')]
+_TED_SPACES = re.compile(r' +')
+
+
+def transform_txt(txt: str) -> str:
+    """Lower case, bracketed tags ([..], (..), <..>, {..}) removed, runs of
+    spaces collapsed, and the space before an apostrophe dropped."""
+    txt = txt.lower()
+    for pat in _TED_BRACKETS:
+        txt = pat.sub('', txt)
+    txt = _TED_SPACES.sub(' ', txt.strip())
+    return txt.replace(" '", "'")
+
+
 class TextMelDataset:
     """(wav path, text) filelist -> {'x': token ids, 'y': log-mel [T, 80]}.
     The filelist is shuffled once with ``seed``, as in the JAX package."""
@@ -99,13 +120,6 @@ class TextMelDataset:
         self.win_length, self.f_min, self.f_max = win_length, f_min, f_max
         if shuffle:
             random.Random(seed).shuffle(self.filepaths_and_text)
-
-    @classmethod
-    def from_config(cls, cfg: GradTTSConfig) -> 'TextMelDataset':
-        d = cfg.data
-        return cls(d.train_filelist_path, d.cmudict_path, d.add_blank,
-                   d.n_fft, d.n_feats, d.sample_rate, d.hop_length,
-                   d.win_length, d.f_min, d.f_max, seed=cfg.train.seed)
 
     def get_text(self, text):
         ids = text_to_sequence(text, dictionary=self.cmudict)
@@ -130,10 +144,75 @@ class TextMelDataset:
         return len(self.filepaths_and_text)
 
 
+class TextMelSpeakerDataset(TextMelDataset):
+    """Filelist lines ``wav|text|speaker_id``; items gain 'spk', the id as
+    int32 [1]."""
+
+    def __getitem__(self, index):
+        path, text, speaker = self.filepaths_and_text[index][:3]
+        return {'x': self.get_text(text), 'y': self.get_mel(path),
+                'spk': np.asarray([int(speaker)], dtype=np.int32)}
+
+
+class TextMelZeroSpeakerDataset(TextMelDataset):
+    """A ``wav|text`` filelist and a matrix of pretrained speaker vectors,
+    one row an utterance in the filelist's order (``.npy``, ``.npz`` or a
+    torch ``.pt`` tensor); items gain 'spk', the row as f32. Not shuffled
+    unless asked, so rows and lines stay paired."""
+
+    def __init__(self, filelist_path, spk_path, cmudict_path,
+                 spk_emb_dim=192, **kw):
+        kw.setdefault('shuffle', False)
+        super().__init__(filelist_path, cmudict_path, **kw)
+        self.spk_emb = _load_embedding_matrix(spk_path)
+        self.spk_emb_dim = spk_emb_dim
+
+    def __getitem__(self, index):
+        path, text = self.filepaths_and_text[index][:2]
+        return {'x': self.get_text(text), 'y': self.get_mel(path),
+                'spk': np.asarray(self.spk_emb[index], dtype=np.float32)}
+
+
+def _load_embedding_matrix(path):
+    """The speaker-vector matrix of a ``.npy`` file, the first array of a
+    ``.npz`` file or a torch tensor saved as ``.pt``."""
+    if path.endswith('.npy'):
+        return np.load(path)
+    if path.endswith('.npz'):
+        with np.load(path) as data:
+            return data[data.files[0]]
+    import torch
+    t = torch.load(path, map_location='cpu', weights_only=True)
+    return np.asarray(t.detach().cpu().numpy() if hasattr(t, 'detach')
+                      else t)
+
+
+def dataset_from_config(cfg: GradTTSConfig, split: str = 'train'):
+    """The dataset of a preset's ``split`` ('train', 'valid' or 'test'):
+    speaker vectors for ``n_spks == -1``, speaker ids for ``n_spks > 1``,
+    else text and mel."""
+    d = cfg.data
+    path = {'train': d.train_filelist_path, 'valid': d.valid_filelist_path,
+            'test': d.test_filelist_path}[split]
+    kw = dict(n_fft=d.n_fft, n_mels=d.n_feats, sample_rate=d.sample_rate,
+              hop_length=d.hop_length, win_length=d.win_length,
+              f_min=d.f_min, f_max=d.f_max, add_blank=d.add_blank,
+              seed=cfg.train.seed)
+    if cfg.n_spks == -1:
+        spk_path = {'train': d.train_spk_path, 'valid': d.valid_spk_path,
+                    'test': d.test_spk_path}[split]
+        return TextMelZeroSpeakerDataset(path, spk_path, d.cmudict_path,
+                                         spk_emb_dim=cfg.spk_emb_dim, **kw)
+    if cfg.n_spks > 1:
+        return TextMelSpeakerDataset(path, d.cmudict_path, **kw)
+    return TextMelDataset(path, d.cmudict_path, **kw)
+
+
 class BatchCollate:
     """Pads a list of items to bucketed static shapes: {'x': [B, Xb] int32,
     'x_lengths': [B], 'y': [B, Yb, F] f32, 'y_lengths': [B]}, Yb a multiple
-    of 4; a batch longer than the last bucket keeps its own length."""
+    of 4; a batch longer than the last bucket keeps its own length. Items
+    with 'spk' add 'spk': int32 ids [B], or f32 vectors [B, D]."""
 
     def __init__(self, x_buckets=(64, 128, 192, 256, 384, 512),
                  y_buckets=(128, 256, 384, 512, 768, 1024, 1536, 2048)):
@@ -158,8 +237,16 @@ class BatchCollate:
             x[i, :xi.shape[-1]] = xi
             y[i, :yi.shape[0]] = yi
             x_lengths[i], y_lengths[i] = xi.shape[-1], yi.shape[0]
-        return {'x': x, 'x_lengths': x_lengths, 'y': y,
-                'y_lengths': y_lengths}
+        out = {'x': x, 'x_lengths': x_lengths, 'y': y,
+               'y_lengths': y_lengths}
+        if 'spk' in batch[0]:
+            if np.asarray(batch[0]['spk']).dtype.kind in 'iu':
+                out['spk'] = np.array([int(np.asarray(b['spk']).reshape(-1)[0])
+                                       for b in batch], np.int32)
+            else:
+                out['spk'] = np.stack([np.asarray(b['spk'], np.float32)
+                                       .reshape(-1) for b in batch])
+        return out
 
 
 class DataLoader:

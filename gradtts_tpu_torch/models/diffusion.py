@@ -3,7 +3,8 @@
 Counterpart of gradtts_tpu/models/diffusion.py (``GradLogPEstimator2d``
 :496, ``ResnetBlock`` :283, ``Block`` :251, ``LinearAttention`` + ``Rezero``
 :351-493, ``SinusoidalPosEmb`` :133, ``get_noise`` :125,
-``reverse_diffusion`` :662, ``forward_diffusion`` :649,
+``reverse_diffusion`` :662 with its ``stoc`` branch,
+``reverse_diffusion_dpm`` :698, ``forward_diffusion`` :649,
 ``diffusion_loss`` :773), without the TPU layout tricks (frequency
 folding and its kernel rearrangements): those are exact re-layouts of the
 math computed here.
@@ -165,22 +166,36 @@ class Upsample(nn.Module):
 
 
 class GradLogPEstimator2d(nn.Module):
-    """U-Net over (F, T) with [mu, x_t] as input channels (single speaker).
+    """U-Net over (F, T) with [mu, x_t(, spk)] as input channels.
 
     Interface as in the JAX package: x, mu [B, T, F]; mask [B, T]; t [B];
-    returns [B, T, F] in f32. Runs in ``compute_dtype``
-    (``models.tts.set_compute_dtype``); the time MLPs and the GroupNorm
-    stay f32."""
+    spk [B, spk_emb_dim] (already embedded) or None; returns [B, T, F] in
+    f32. Runs in ``compute_dtype`` (``models.tts.set_compute_dtype``); the
+    time and speaker MLPs and the GroupNorm stay f32.
+
+    Speakers (:513-545): with ``n_spks > 1`` the speaker MLP's output,
+    broadcast over time, is a third input channel. With ``n_spks == -1``
+    the JAX package computes the MLP and uses its output nowhere (the
+    fork's quirk): the parameters exist so that a reference checkpoint
+    loads, and the output does not depend on the vector, so the MLP is
+    not run."""
 
     def __init__(self, dim: int, dim_mults=(1, 2, 4), groups: int = 8,
-                 n_feats: int = 80, pe_scale: float = 1000.0):
+                 n_feats: int = 80, pe_scale: float = 1000.0,
+                 n_spks: int = 1, spk_emb_dim: int = 64):
         super().__init__()
         self.pe_scale = pe_scale
+        self.n_spks = n_spks
         self.compute_dtype = torch.float32
+        self.spk_mlp = None
+        if n_spks > 1 or n_spks == -1:
+            self.spk_mlp = nn.Sequential(
+                nn.Linear(spk_emb_dim, spk_emb_dim * 4), Mish(),
+                nn.Linear(spk_emb_dim * 4, n_feats))
         self.time_pos_emb = SinusoidalPosEmb(dim)
         self.mlp = nn.Sequential(nn.Linear(dim, dim * 4), Mish(),
                                  nn.Linear(dim * 4, dim))
-        dims = [2] + [dim * m for m in dim_mults]
+        dims = [3 if n_spks > 1 else 2] + [dim * m for m in dim_mults]
         in_out = list(zip(dims[:-1], dims[1:]))
         self.downs = nn.ModuleList()
         for ind, (dim_in, dim_out) in enumerate(in_out):
@@ -204,11 +219,18 @@ class GradLogPEstimator2d(nn.Module):
         self.final_block = Block(dim, dim, groups)
         self.final_conv = Conv2d(dim, 1, 1)
 
-    def forward(self, x, mask, mu, t):
+    def forward(self, x, mask, mu, t, spk=None):
         dtype = self.compute_dtype
         t_emb = self.mlp(self.time_pos_emb(t, scale=self.pe_scale))
-        h = torch.stack([mu.transpose(1, 2), x.transpose(1, 2)], dim=1)
-        h = h.to(dtype).contiguous(memory_format=CL)            # [B, 2, F, T]
+        chans = [mu.transpose(1, 2), x.transpose(1, 2)]
+        if self.n_spks > 1:
+            if spk is None:
+                raise ValueError(f'a {self.n_spks}-speaker estimator needs '
+                                 'the speaker embedding spk')
+            s = self.spk_mlp(spk.float())                       # [B, F]
+            chans.append(s[:, :, None].expand(-1, -1, x.shape[1]))
+        h = torch.stack(chans, dim=1)
+        h = h.to(dtype).contiguous(memory_format=CL)         # [B, 2|3, F, T]
         m = mask[:, None, None, :].to(dtype)                    # [B, 1, 1, T]
 
         hiddens, masks = [], [m]
@@ -241,17 +263,25 @@ class Diffusion(nn.Module):
     """Holds the estimator under the reference's ``decoder.estimator``."""
 
     def __init__(self, n_feats: int, dim: int, beta_min: float,
-                 beta_max: float, pe_scale: float):
+                 beta_max: float, pe_scale: float, n_spks: int = 1,
+                 spk_emb_dim: int = 64):
         super().__init__()
         self.beta_min, self.beta_max = beta_min, beta_max
         self.estimator = GradLogPEstimator2d(dim, n_feats=n_feats,
-                                             pe_scale=pe_scale)
+                                             pe_scale=pe_scale, n_spks=n_spks,
+                                             spk_emb_dim=spk_emb_dim)
 
 
 def reverse_diffusion(estimator, z, mask, mu, n_timesteps: int, beta_min,
-                      beta_max):
-    """Euler steps of the probability-flow ODE (``reverse_diffusion`` :662,
-    ODE branch). z, mu [B, T, F]; mask [B, T, 1]."""
+                      beta_max, stoc: bool = False, spk=None, noise=None,
+                      generator=None):
+    """Euler steps of the reverse diffusion (``reverse_diffusion`` :662):
+    the probability-flow ODE, or with ``stoc`` the Euler-Maruyama SDE,
+    whose step adds N(0, 1) sqrt(noise_t h) to the drift
+    (0.5 (mu - x) - score) noise_t h. z, mu [B, T, F]; mask [B, T, 1];
+    ``spk`` the embedded speaker passed to the estimator. The SDE's draws
+    are ``noise`` [n_timesteps, B, T, F], or drawn step by step from
+    ``generator`` when None."""
     h = 1.0 / n_timesteps
     xt = z * mask
     for i in range(n_timesteps):
@@ -259,9 +289,85 @@ def reverse_diffusion(estimator, z, mask, mu, n_timesteps: int, beta_min,
                           device=z.device)
         t = 1.0 - (step + 0.5) * h
         noise_t = get_noise(t[:, None, None], beta_min, beta_max)
-        score = estimator(xt, mask[..., 0], mu, t)
-        dxt = 0.5 * (mu - xt - score) * noise_t * h
+        score = estimator(xt, mask[..., 0], mu, t, spk)
+        if stoc:
+            draw = noise[i].to(z) if noise is not None else torch.randn(
+                z.shape, generator=generator, dtype=z.dtype, device=z.device)
+            dxt = (0.5 * (mu - xt) - score) * noise_t * h \
+                + draw * torch.sqrt(noise_t * h)
+        else:
+            dxt = 0.5 * (mu - xt - score) * noise_t * h
         xt = (xt - dxt) * mask
+    return xt
+
+
+def _linspace(start, stop, num: int):
+    """``jnp.linspace`` as the JAX package computes it: start (1 - s) +
+    stop s at s = i / (num - 1), and the last point ``stop`` itself
+    (``torch.linspace`` may differ from it in the last ulp)."""
+    s = torch.arange(num - 1, dtype=start.dtype, device=start.device) \
+        / (num - 1)
+    return torch.cat([start * (1 - s) + stop * s, stop.reshape(1)])
+
+
+def interp(x, xp, fp):
+    """``jnp.interp`` (numpy's ``interp``) on ``torch.searchsorted``: linear
+    interpolation in the increasing table (xp, fp), held at fp[0] left of
+    xp[0] and at fp[-1] right of xp[-1]."""
+    i = torch.searchsorted(xp, x, right=True).clamp(1, xp.numel() - 1)
+    df = fp[i] - fp[i - 1]
+    dx = xp[i] - xp[i - 1]
+    f = fp[i - 1] + ((x - xp[i - 1]) / dx) * df
+    f = torch.where(x < xp[0], fp[0], f)
+    return torch.where(x > xp[-1], fp[-1], f)
+
+
+def dpm_grid(n: int, beta_min, beta_max, t_min: float = 0.02,
+             dtype=torch.float32, device=None):
+    """The DPM-Solver grid of ``reverse_diffusion_dpm`` (:738-749): n + 1
+    times ``ts`` (1 down to ``t_min``) uniform in the log-SNR lambda =
+    log(alpha / sigma), found by inverting lambda(t) on a 2049-point
+    table; alpha_t = exp(-zeta), zeta = 0.5 int beta; sigma_t =
+    sqrt(1 - alpha_t^2) as -expm1(-2 zeta), which keeps its digits near
+    t_min. Returns (ts, alphas, sigmas, hs), hs the n log-SNR steps."""
+    t_min = torch.tensor(t_min, dtype=dtype, device=device)
+    tt = _linspace(t_min, torch.ones_like(t_min), 2049)
+    zt = 0.5 * get_noise(tt, beta_min, beta_max, cumulative=True)
+    lam_tab = -zt - 0.5 * torch.log(-torch.expm1(-2.0 * zt))
+    lam_edges = _linspace(lam_tab[-1], lam_tab[0], n + 1)
+    # lambda falls as t grows: the table reversed is increasing
+    ts = interp(lam_edges, lam_tab.flip(0), tt.flip(0))
+    zetas = 0.5 * get_noise(ts, beta_min, beta_max, cumulative=True)
+    alphas = torch.exp(-zetas)
+    sigmas = torch.sqrt(-torch.expm1(-2.0 * zetas))
+    return ts, alphas, sigmas, lam_edges[1:] - lam_edges[:-1]
+
+
+def reverse_diffusion_dpm(estimator, z, mask, mu, n_timesteps: int, beta_min,
+                          beta_max, spk=None, t_min: float = 0.02):
+    """DPM-Solver-2M with eps prediction on the uniform log-SNR grid of
+    :func:`dpm_grid` (``reverse_diffusion_dpm`` :698). With y = x - mu and
+    the noise prediction eps = -sigma_t score, a step is
+    y' = (alpha_r / alpha_t) y - sigma_r expm1(h) E, E = eps on the first
+    step and (1 + 1/2r) eps - (1/2r) eps_prev after it, r = h_prev / h.
+    One estimator call a step, as Euler. z, mu [B, T, F]; mask [B, T, 1]."""
+    ts, alphas, sigmas, hs = dpm_grid(n_timesteps, beta_min, beta_max, t_min,
+                                      z.dtype, z.device)
+    xt = z * mask
+    e_prev = h_prev = None
+    for i in range(n_timesteps):
+        t = ts[i].expand(z.shape[0])
+        eps = -sigmas[i] * estimator(xt, mask[..., 0], mu, t, spk)
+        h = hs[i]
+        if i == 0:
+            e_ext = eps
+        else:
+            r = h_prev / h
+            e_ext = (1.0 + 0.5 / r) * eps - (0.5 / r) * e_prev
+        y = (alphas[i + 1] / alphas[i]) * (xt - mu) \
+            - sigmas[i + 1] * torch.expm1(h) * e_ext
+        xt = (mu + y) * mask
+        e_prev, h_prev = eps, h
     return xt
 
 
@@ -278,11 +384,11 @@ def forward_diffusion(x0, mask, mu, t, z, beta_min, beta_max):
 
 
 def diffusion_loss(estimator, x0, mask, mu, beta_min, beta_max, t=None,
-                   z=None, generator=None, offset: float = 1e-5):
+                   z=None, generator=None, offset: float = 1e-5, spk=None):
     """Score-matching loss (``diffusion_loss`` :773). ``t`` [B] (clipped to
     [offset, 1 - offset]) and ``z`` [B, T, F] are the uniform and normal
-    draws; each that is None is drawn from ``generator``. mask [B, T, 1].
-    Returns (loss, x_t, t)."""
+    draws; each that is None is drawn from ``generator``. mask [B, T, 1];
+    ``spk`` the embedded speaker. Returns (loss, x_t, t)."""
     if t is None:
         t = torch.rand(x0.shape[0], generator=generator, dtype=x0.dtype,
                        device=x0.device)
@@ -293,7 +399,7 @@ def diffusion_loss(estimator, x0, mask, mu, beta_min, beta_max, t=None,
     xt, z = forward_diffusion(x0, mask, mu, t, z, beta_min, beta_max)
     cum_noise = get_noise(t[:, None, None], beta_min, beta_max,
                           cumulative=True)
-    est = estimator(xt, mask[..., 0], mu, t)
+    est = estimator(xt, mask[..., 0], mu, t, spk)
     est = est * torch.sqrt(1.0 - torch.exp(-cum_noise))
     loss = torch.sum((est + z) ** 2) / (torch.sum(mask) * x0.shape[-1])
     return loss, xt, t

@@ -3,7 +3,8 @@ transformer -> mel prior mu_x + duration predictor.
 
 Counterpart of gradtts_tpu/models/text_encoder.py (``TextEncoder`` :457,
 ``Encoder`` :390, ``_mha_apply`` :321, ``ConvReluNorm`` :24,
-``DurationPredictor`` :51). Activations are [B, C, T] as torch's Conv1d
+``DurationPredictor`` :51), with the upstream speaker concat
+(:495-499). Activations are [B, C, T] as torch's Conv1d
 takes them; parameter names follow the reference torch ``state_dict``
 (``encoder.prenet.conv_layers.0.weight``, ...). The JAX package has no
 kernel here, so the attention is plain matmul + softmax: the relative
@@ -200,35 +201,49 @@ class Encoder(nn.Module):
 
 
 class TextEncoder(nn.Module):
-    """Full text encoder (``TextEncoder`` :457), fork wiring: no speaker
-    input. The trunk runs in ``compute_dtype`` (see
+    """Full text encoder (``TextEncoder`` :457). The fork builds it with no
+    speaker input; with ``n_spks > 1`` (the upstream wiring, GradTTS's
+    ``encoder_speaker``) the speaker embedding, broadcast over the tokens,
+    is concatenated after the prenet (:495-499), and the transformer, its
+    relative-position tables and the output heads are ``n_channels +
+    spk_emb_dim`` wide. The trunk runs in ``compute_dtype`` (see
     ``models.tts.set_compute_dtype``); the output heads ``proj_m`` and
     ``proj_w`` run in f32 whatever that dtype is (:504-510)."""
 
     def __init__(self, n_vocab: int, n_feats: int, n_channels: int,
                  filter_channels: int, filter_channels_dp: int, n_heads: int,
                  n_layers: int, kernel_size: int, window_size: int,
-                 p_dropout: float = 0.1):
+                 p_dropout: float = 0.1, n_spks: int = 1,
+                 spk_emb_dim: int = 64):
         super().__init__()
         self.n_channels = n_channels
+        self.n_spks = n_spks
         self.compute_dtype = torch.float32
+        width = n_channels + (spk_emb_dim if n_spks > 1 else 0)
         self.emb = nn.Embedding(n_vocab, n_channels)
         self.prenet = ConvReluNorm(n_channels, kernel_size=5, n_layers=3)
-        self.encoder = Encoder(n_channels, filter_channels, n_heads, n_layers,
+        self.encoder = Encoder(width, filter_channels, n_heads, n_layers,
                                kernel_size, window_size, p_dropout)
-        self.proj_m = Conv1d(n_channels, n_feats, 1)
-        self.proj_w = DurationPredictor(n_channels, filter_channels_dp,
+        self.proj_m = Conv1d(width, n_feats, 1)
+        self.proj_w = DurationPredictor(width, filter_channels_dp,
                                         kernel_size, p_dropout)
 
-    def forward(self, x, x_lengths, generator=None):
-        """x [B, Tx] int ids; x_lengths [B]. Returns f32 (mu_x [B, Tx, F],
-        logw [B, Tx, 1], x_mask [B, Tx, 1]). ``generator`` draws the
-        dropout masks under ``train()``."""
+    def forward(self, x, x_lengths, generator=None, spk=None):
+        """x [B, Tx] int ids; x_lengths [B]; spk [B, spk_emb_dim], the
+        embedded speaker (read with ``n_spks > 1`` only). Returns f32
+        (mu_x [B, Tx, F], logw [B, Tx, 1], x_mask [B, Tx, 1]).
+        ``generator`` draws the dropout masks under ``train()``."""
         dtype = self.compute_dtype
         h = (self.emb(x) * math.sqrt(self.n_channels)).transpose(1, 2)
         h = h.to(dtype)                                         # [B, C, T]
         x_mask = sequence_mask(x_lengths, x.shape[1])[:, None, :].to(dtype)
         h = self.prenet(h, x_mask, generator)
+        if self.n_spks > 1:
+            if spk is None:
+                raise ValueError('an encoder with the speaker concat needs '
+                                 'the speaker embedding spk')
+            h = torch.cat([h, spk.to(dtype)[:, :, None].expand(
+                -1, -1, h.shape[2])], dim=1)
         h = self.encoder(h, x_mask, generator).float()
         x_mask = x_mask.float()
         mu = self.proj_m(h) * x_mask

@@ -3,11 +3,12 @@ the score closure of likelihood scoring.
 
 Counterpart of gradtts_tpu/models/tts.py (``GradTTS`` :33, ``synthesize``
 :145-211, ``_log_prior_grid`` :214, ``compute_loss`` :234-301,
-``get_score_fn`` :304-336). Submodules ``encoder`` and
-``decoder.estimator`` carry the
-reference torch ``state_dict`` layout, so a reference ``.pt`` file loads
-with ``load_state_dict(strict=True)``. Layouts at the public functions are
-the JAX package's: text ids [B, Tx], mels [B, Ty, F].
+``get_score_fn`` :304-336). Submodules ``encoder``, ``decoder.estimator``
+and ``spk_emb`` carry the reference torch ``state_dict`` layout, so a
+reference ``.pt`` file loads with ``load_state_dict(strict=True)``.
+Layouts at the public functions are the JAX package's: text ids [B, Tx],
+mels [B, Ty, F], speakers ``spk`` as int ids [B] (``n_spks > 1``) or
+vectors [B, spk_emb_dim] (``n_spks == -1``).
 """
 
 import math
@@ -18,7 +19,8 @@ from torch import nn
 
 from gradtts_tpu_torch.config import GradTTSConfig
 from gradtts_tpu_torch.models.diffusion import (Diffusion, diffusion_loss,
-                                                reverse_diffusion)
+                                                reverse_diffusion,
+                                                reverse_diffusion_dpm)
 from gradtts_tpu_torch.models.text_encoder import TextEncoder
 from gradtts_tpu_torch.ops.mas import maximum_path
 from gradtts_tpu_torch.ops.seq import (duration_loss, generate_path,
@@ -26,46 +28,66 @@ from gradtts_tpu_torch.ops.seq import (duration_loss, generate_path,
 
 
 class GradTTS(nn.Module):
-    """Single-speaker GradTTS with the fork's wiring (no speaker input to the
-    encoder). Other speaker set-ups are not ported yet."""
+    """GradTTS in every speaker set-up of the JAX package: ``n_spks`` 1 (one
+    speaker), > 1 (an ``spk_emb`` table of speaker ids) or -1 (external
+    speaker vectors). The speaker conditions the U-Net; with
+    ``encoder_speaker`` (the upstream wiring, ``n_spks > 1``) it also
+    enters the encoder after the prenet, as the fork does not."""
 
     def __init__(self, n_vocab: int, n_enc_channels: int = 192,
                  filter_channels: int = 768, filter_channels_dp: int = 256,
                  n_heads: int = 2, n_enc_layers: int = 6, enc_kernel: int = 3,
                  window_size: int = 4, n_feats: int = 80, dec_dim: int = 64,
                  beta_min: float = 0.05, beta_max: float = 20.0,
-                 pe_scale: float = 1000.0, enc_dropout: float = 0.1):
+                 pe_scale: float = 1000.0, enc_dropout: float = 0.1,
+                 n_spks: int = 1, spk_emb_dim: int = 64,
+                 encoder_speaker: bool = False):
         super().__init__()
         self.n_feats = n_feats
+        self.n_spks = n_spks
+        if n_spks > 1:
+            self.spk_emb = nn.Embedding(n_spks, spk_emb_dim)
         self.encoder = TextEncoder(n_vocab, n_feats, n_enc_channels,
                                    filter_channels, filter_channels_dp,
                                    n_heads, n_enc_layers, enc_kernel,
-                                   window_size, enc_dropout)
+                                   window_size, enc_dropout,
+                                   n_spks if encoder_speaker else 1,
+                                   spk_emb_dim)
         self.decoder = Diffusion(n_feats, dec_dim, beta_min, beta_max,
-                                 pe_scale)
+                                 pe_scale, n_spks, spk_emb_dim)
 
     @classmethod
     def from_config(cls, cfg: GradTTSConfig) -> 'GradTTS':
-        if cfg.n_spks != 1 or cfg.encoder_speaker:
-            raise NotImplementedError(
-                f'preset {cfg.name!r}: n_spks={cfg.n_spks}, encoder_speaker='
-                f'{cfg.encoder_speaker}; the port runs single-speaker models '
-                'only so far')
         e, d = cfg.encoder, cfg.decoder
         return cls(cfg.n_vocab, e.n_enc_channels, e.filter_channels,
                    e.filter_channels_dp, e.n_heads, e.n_enc_layers,
                    e.enc_kernel, e.window_size, cfg.data.n_feats, d.dec_dim,
-                   d.beta_min, d.beta_max, d.pe_scale, e.enc_dropout)
+                   d.beta_min, d.beta_max, d.pe_scale, e.enc_dropout,
+                   cfg.n_spks, cfg.spk_emb_dim, cfg.encoder_speaker)
 
-    def encode(self, x, x_lengths, generator=None):
+    def embed_speaker(self, spk):
+        """(``embed_speaker`` :106) the ``spk_emb`` row of each id [B] with
+        ``n_spks > 1``, the vectors [B, D] themselves with -1 (f32), and
+        None with one speaker."""
+        if self.n_spks > 1:
+            if spk is None:
+                raise ValueError(f'a {self.n_spks}-speaker model needs the '
+                                 'speaker ids spk')
+            return self.spk_emb(spk.long())
+        if self.n_spks == -1 and spk is not None:
+            return spk.float()
+        return None
+
+    def encode(self, x, x_lengths, generator=None, spk_vec=None):
         """-> f32 (mu_x [B, Tx, F], logw [B, Tx, 1], x_mask [B, Tx, 1]).
-        ``generator`` draws the dropout masks under ``train()``."""
-        return self.encoder(x, x_lengths, generator)
+        ``generator`` draws the dropout masks under ``train()``; ``spk_vec``
+        is the speaker as :meth:`embed_speaker` returns it."""
+        return self.encoder(x, x_lengths, generator, spk_vec)
 
-    def estimate(self, x_t, mask, mu, t):
+    def estimate(self, x_t, mask, mu, t, spk_vec=None):
         """Score estimate [B, Ty, F] (f32) for x_t, mu [B, Ty, F], mask
-        [B, Ty], t [B]."""
-        return self.decoder.estimator(x_t, mask, mu, t)
+        [B, Ty], t [B]; ``spk_vec`` as in :meth:`encode`."""
+        return self.decoder.estimator(x_t, mask, mu, t, spk_vec)
 
 
 def set_compute_dtype(model: GradTTS, dtype: torch.dtype) -> GradTTS:
@@ -93,8 +115,9 @@ class SynthesisResult(NamedTuple):
 def synthesize(model: GradTTS, x, x_lengths, n_timesteps: int,
                y_max_length: int, temperature: float = 1.0,
                length_scale: float = 1.0, noise=None,
-               generator=None) -> SynthesisResult:
-    """Text -> mel with the Euler ODE sampler (``synthesize`` :145).
+               generator=None, stoc: bool = False, spk=None,
+               sampler: str = 'euler', stoc_noise=None) -> SynthesisResult:
+    """Text -> mel (``synthesize`` :145).
 
     Runs on the device of the model and of ``x``. ``y_max_length`` is the
     padded frame budget (a multiple of 4); frames past the predicted length
@@ -102,8 +125,17 @@ def synthesize(model: GradTTS, x, x_lengths, n_timesteps: int,
     durations, each sequence gets at least 1 and at most ``y_max_length``
     frames (:180-183). ``noise`` [B, y_max_length, F] is the standard normal
     draw; when None it is drawn from ``generator``.
+
+    ``sampler`` 'euler' runs ``reverse_diffusion``, the probability-flow
+    ODE or, with ``stoc``, the SDE, whose per-step draws are ``stoc_noise``
+    [n_timesteps, B, y_max_length, F] (drawn from ``generator`` when None);
+    'dpm' runs ``reverse_diffusion_dpm`` and ignores ``stoc``, as the JAX
+    package does. ``spk``: speaker ids [B] or vectors [B, D].
     """
-    mu_x, logw, x_mask = model.encode(x, x_lengths)
+    if sampler not in ('euler', 'dpm'):
+        raise ValueError(f'unknown sampler {sampler!r}: euler or dpm')
+    spk_vec = model.embed_speaker(spk)
+    mu_x, logw, x_mask = model.encode(x, x_lengths, spk_vec=spk_vec)
     w = torch.exp(logw[..., 0]) * x_mask[..., 0]                 # [B, Tx]
     w_ceil = torch.ceil(w) * length_scale
     y_lengths = torch.clamp(w_ceil.sum(dim=1), min=1.0)
@@ -118,9 +150,13 @@ def synthesize(model: GradTTS, x, x_lengths, n_timesteps: int,
         noise = torch.randn(mu_y.shape, generator=generator,
                             dtype=mu_y.dtype, device=mu_y.device)
     z = mu_y + noise.to(mu_y) / temperature
-    dec = reverse_diffusion(model.decoder.estimator, z, y_mask, mu_y,
-                            n_timesteps, model.decoder.beta_min,
-                            model.decoder.beta_max)
+    dec_args = (model.decoder.estimator, z, y_mask, mu_y, n_timesteps,
+                model.decoder.beta_min, model.decoder.beta_max)
+    if sampler == 'dpm':
+        dec = reverse_diffusion_dpm(*dec_args, spk=spk_vec)
+    else:
+        dec = reverse_diffusion(*dec_args, stoc=stoc, spk=spk_vec,
+                                noise=stoc_noise, generator=generator)
     return SynthesisResult(mu_y * y_mask, dec * y_mask, attn, y_lengths,
                            y_mask)
 
@@ -155,16 +191,18 @@ def crop_offsets(y_lengths, out_size: int, generator=None):
 
 def compute_loss(model: GradTTS, x, x_lengths, y, y_lengths,
                  out_size: Optional[int] = None, offset=None, t=None, z=None,
-                 generator=None) -> LossResult:
+                 generator=None, spk=None) -> LossResult:
     """Duration + prior + diffusion losses (``compute_loss`` :234).
 
-    x [B, Tx] ids; y [B, Ty, F] mels. The random draws are inputs: the crop
+    x [B, Tx] ids; y [B, Ty, F] mels; ``spk`` speaker ids [B] or vectors
+    [B, D] where the model has speakers. The random draws are inputs: the crop
     ``offset`` [B] (used when ``out_size`` < Ty), the diffusion time ``t``
     [B] and noise ``z`` [B, out_size or Ty, F]; each that is None is drawn
     from ``generator``, which also draws the encoder's dropout masks under
     ``train()``. The alignment is MAS on the log-prior grid, without grad;
     the per-item crop is one batched gather."""
-    mu_x, logw, x_mask = model.encode(x, x_lengths, generator)
+    spk_vec = model.embed_speaker(spk)
+    mu_x, logw, x_mask = model.encode(x, x_lengths, generator, spk_vec)
     y_max_length = y.shape[1]
     y_mask = sequence_mask(y_lengths, y_max_length)[..., None].to(x_mask)
     attn_mask = x_mask[:, :, None, 0] * y_mask[:, None, :, 0]  # [B, Tx, Ty]
@@ -192,21 +230,22 @@ def compute_loss(model: GradTTS, x, x_lengths, y, y_lengths,
     mu_y = torch.einsum('bxy,bxf->byf', attn, mu_x)
     diff, _, _ = diffusion_loss(model.decoder.estimator, y, y_mask, mu_y,
                                 model.decoder.beta_min, model.decoder.beta_max,
-                                t=t, z=z, generator=generator)
+                                t=t, z=z, generator=generator, spk=spk_vec)
     prior = torch.sum(0.5 * ((y - mu_y) ** 2 + math.log(2 * math.pi))
                       * y_mask)
     prior = prior / (torch.sum(y_mask) * model.n_feats)
     return LossResult(dur, prior, diff, attn)
 
 
-def get_score_fn(model: GradTTS, x, x_lengths, y, y_lengths):
+def get_score_fn(model: GradTTS, x, x_lengths, y, y_lengths, spk=None):
     """Score closure for (text hypothesis, real mel) pairs (``get_score_fn``
     :304): encodes x [B, Tx], aligns the real mels y [B, Ty, F] to the
     tokens by MAS on the log-prior grid (no grad) and returns (score_fn,
     mu_y [B, Ty, F], y_mask [B, Ty, 1]); score_fn(x_t, t) is the U-Net's
-    score conditioned on mu_y. The port is single speaker, so there is no
-    speaker vector."""
-    mu_x, _logw, x_mask = model.encode(x, x_lengths)
+    score conditioned on mu_y and the speaker ``spk`` (ids [B] or vectors
+    [B, D])."""
+    spk_vec = model.embed_speaker(spk)
+    mu_x, _logw, x_mask = model.encode(x, x_lengths, spk_vec=spk_vec)
     y_mask = sequence_mask(y_lengths, y.shape[1])[..., None].to(x_mask)
     attn_mask = x_mask[:, :, None, 0] * y_mask[:, None, :, 0]  # [B, Tx, Ty]
     with torch.no_grad():
@@ -216,6 +255,6 @@ def get_score_fn(model: GradTTS, x, x_lengths, y, y_lengths):
     mask = y_mask[..., 0]
 
     def score_fn(x_t, t):
-        return model.estimate(x_t, mask, mu_y, t)
+        return model.estimate(x_t, mask, mu_y, t, spk_vec)
 
     return score_fn, mu_y, y_mask

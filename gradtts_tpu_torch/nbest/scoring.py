@@ -40,14 +40,18 @@ from gradtts_tpu_torch.nbest.lists import NBestList
 @torch.no_grad()
 def score_batch(model: GradTTS, x, x_lengths, y, y_lengths,
                 n_euler: int = 10, rtol=1e-3, atol=1e-3, generator=None,
-                epsilon=None, max_steps: int = 10_000) -> LikelihoodResult:
+                epsilon=None, max_steps: int = 10_000,
+                spk=None) -> LikelihoodResult:
     """Log-likelihood score of the real mels y [B, Ty, F] under the
-    text-conditional score model, for token ids x [B, Tx] (``score_batch``
-    :41). The probe is ``epsilon`` [B, Ty, F], or drawn from ``generator``.
+    text-conditional score model, for token ids x [B, Tx] and speakers
+    ``spk`` (ids [B] or vectors [B, D], where the model has speakers)
+    (``score_batch`` :41). The probe is ``epsilon`` [B, Ty, F], or drawn
+    from ``generator``.
     ``.score`` holds the [B] scores, -(prior_logp + delta_logp); callers of
     the adaptive integrator (``n_euler=0``) check ``.converged``. The
     forward-mode derivatives need no autograd graph, so none is built."""
-    score_fn, mu_y, y_mask = get_score_fn(model, x, x_lengths, y, y_lengths)
+    score_fn, mu_y, y_mask = get_score_fn(model, x, x_lengths, y, y_lengths,
+                                          spk)
     dec = model.decoder
     sde = SpeechSDE(beta_min=dec.beta_min, beta_max=dec.beta_max,
                     N=int(dec.estimator.pe_scale), mu=mu_y, mask=y_mask)
@@ -76,7 +80,8 @@ class NBestScorer:
         return next(self.model.parameters()).device
 
     def score_items(self, items: List[dict], generator=None) -> np.ndarray:
-        """items: [{'x': ids, 'y': mel [T, F]}, ...] -> [B] f64 scores.
+        """items: [{'x': ids, 'y': mel [T, F] (, 'spk')}, ...] -> [B] f64
+        scores.
 
         Raises RuntimeError when the adaptive integrator (n_euler=0) did not
         converge within its step budget: unconverged likelihoods are never
@@ -85,9 +90,12 @@ class NBestScorer:
         batch = self.collate(items)
         args = [torch.from_numpy(batch[k]).to(self.device)
                 for k in ('x', 'x_lengths', 'y', 'y_lengths')]
+        spk = batch.get('spk')
+        if spk is not None:
+            spk = torch.from_numpy(spk).to(self.device)
         res = score_batch(self.model, *args, n_euler=self.n_euler,
                           rtol=self.rtol, atol=self.atol, generator=generator,
-                          max_steps=self.max_steps)
+                          max_steps=self.max_steps, spk=spk)
         if not res.converged:
             raise RuntimeError(
                 'likelihood ODE integration did not converge within '
@@ -120,9 +128,10 @@ def score_n_best(scorer: NBestScorer, dataset, n_best: NBestList, N: int,
     this call (skipped pairs not counted); ``progress(done, total)`` is
     called after each batch.
 
-    ``dataset`` gives ``get_text(str)`` and ``__getitem__ -> {'y'}`` like
-    TextMelDataset: the real mel comes from the dataset, the text from the
-    hypothesis (NBestDataset, n_best_list_experiment.py:91-116)."""
+    ``dataset`` gives ``get_text(str)`` and ``__getitem__ -> {'y'(,
+    'spk')}`` like TextMelDataset: the real mel and the speaker come from
+    the dataset, the text from the hypothesis (NBestDataset,
+    n_best_list_experiment.py:91-116)."""
     os.makedirs(out_dir, exist_ok=True)
     pairs = [(i, n) for i, n in _iter_pairs(len(n_best), N, shard)
              if not (resume and os.path.exists(_result_path(out_dir, i, n)))]
@@ -133,8 +142,11 @@ def score_n_best(scorer: NBestScorer, dataset, n_best: NBestList, N: int,
             mel_cache[i] = dataset[i]
             if len(mel_cache) > 4 * scorer.batch_size:   # bound host memory
                 mel_cache.pop(next(iter(mel_cache)))
-        return {'x': dataset.get_text(n_best.hypothesis(i, n)),
+        item = {'x': dataset.get_text(n_best.hypothesis(i, n)),
                 'y': mel_cache[i]['y']}
+        if 'spk' in mel_cache[i]:
+            item['spk'] = mel_cache[i]['spk']
+        return item
 
     def bucket_key(item):
         return (bucket_length(item['x'].shape[-1], scorer.collate.x_buckets),

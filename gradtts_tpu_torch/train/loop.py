@@ -7,7 +7,9 @@ parameters and the Adam state are f32 on the device; the forward runs in
 bf16 where the JAX package does when ``train.use_bf16_compute`` is set.
 The metrics stay on the device and are fetched every ``FLUSH_EVERY`` steps
 in one copy, never per step. TensorBoard scalars (the reference's names)
-are written when ``torch.utils.tensorboard`` imports. Not ported: the
+are written when ``torch.utils.tensorboard`` imports. The dataset is the
+preset's (``dataset_from_config``: speaker ids or vectors where it has
+speakers), and a batch's ``spk`` goes to ``compute_loss``. Not ported: the
 epoch-end synthesis previews and plots, and multi-device training.
 """
 
@@ -21,7 +23,7 @@ import torch
 
 from gradtts_tpu_torch.config import GradTTSConfig
 from gradtts_tpu_torch.data.dataset import (BatchCollate, DataLoader,
-                                            TextMelDataset)
+                                            dataset_from_config)
 from gradtts_tpu_torch.models.tts import GradTTS, set_compute_dtype
 from gradtts_tpu_torch.train.checkpoint import (restore_checkpoint,
                                                 save_checkpoint)
@@ -67,12 +69,13 @@ class TrainResult(NamedTuple):
 
 
 def batch_to(batch: dict, device) -> dict:
-    """A collated numpy batch as tensors on ``device``: ids and lengths
-    int64, mels f32."""
+    """A collated numpy batch as tensors on ``device``: ids, lengths and
+    speaker ids int64, mels and speaker vectors f32."""
     out = {}
     for k, v in batch.items():
         t = torch.from_numpy(np.asarray(v))
-        out[k] = (t.long() if k != 'y' else t).to(device, non_blocking=True)
+        out[k] = (t if t.is_floating_point() else t.long()).to(
+            device, non_blocking=True)
     return out
 
 
@@ -129,7 +132,7 @@ def train(cfg: GradTTSConfig, n_epochs: Optional[int] = None,
         log.info('resumed from step %d', start_step)
 
     if loader is None:
-        loader = DataLoader(TextMelDataset.from_config(cfg),
+        loader = DataLoader(dataset_from_config(cfg),
                             cfg.train.batch_size,
                             BatchCollate(cfg.data.x_buckets,
                                          cfg.data.y_buckets),

@@ -14,6 +14,11 @@ mapping below is the port's own copy of that file's ``_encoder_torch_key``
       (the JAX Upsample correlates with the spatially flipped kernel,
        convert.py:44-45; the flip is undone here)
   everything else                    -> copied
+
+The vocoder's bridge (gradtts_tpu/models/hifigan.py :372-420):
+``load_hifigan_state_dict`` folds a reference generator's weight norm as
+``_fold_weight_norm`` does, and ``hifigan_flax_to_state_dict`` is the
+inverse of ``hifigan_torch_to_flax``.
 """
 
 import os
@@ -160,6 +165,75 @@ def _unflatten_npz(flat):
             node = node.setdefault(p, {})
         node[leaf] = v
     return tree
+
+
+def detect_encoder_speaker(state_dict, n_enc_channels: int) -> bool:
+    """True where a reference ``state_dict`` has the upstream encoder-side
+    speaker wiring: ``encoder.proj_m`` reads ``n_enc_channels +
+    spk_emb_dim`` channels (copy of gradtts_tpu/utils/convert.py:186)."""
+    w = state_dict.get('encoder.proj_m.weight')
+    if w is None:
+        return False
+    return int(w.shape[1]) > n_enc_channels
+
+
+def _hifigan_bases(cfg):
+    """(key base, transposed) of every weighted layer of the generator."""
+    bases = [('conv_pre', False), ('conv_post', False)]
+    bases += [(f'ups.{i}', True) for i in range(len(cfg.upsample_rates))]
+    n_kernels = len(cfg.resblock_kernel_sizes)
+    for b in range(len(cfg.upsample_rates) * n_kernels):
+        n_dil = len(cfg.resblock_dilation_sizes[b % n_kernels])
+        convs = ('convs1', 'convs2') if cfg.resblock == '1' else ('convs',)
+        bases += [(f'resblocks.{b}.{c}.{j}', False) for c in convs
+                  for j in range(n_dil)]
+    return bases
+
+
+def load_hifigan_state_dict(state_dict, cfg) -> dict:
+    """A reference generator checkpoint (the dict under a ``.pt`` file's
+    ``generator`` key, with ``weight_g``/``weight_v`` pairs or plain
+    weights) -> the plain ``state_dict`` of ``models.hifigan.Generator``:
+    weight = g v / ||v||, the norm over every axis but the first (torch's
+    ``weight_norm`` default, ``_fold_weight_norm`` :372). Raises KeyError
+    where a layer of ``cfg`` is missing."""
+    sd = {k: torch.as_tensor(v) for k, v in state_dict.items()}
+    out = {}
+    for base, _ in _hifigan_bases(cfg):
+        if base + '.weight_g' in sd:
+            g = sd[base + '.weight_g'].double()
+            v = sd[base + '.weight_v'].double()
+            norm = v.pow(2).sum(dim=tuple(range(1, v.ndim)),
+                                keepdim=True).sqrt()
+            w = (g * v / norm).float()
+        else:
+            w = sd[base + '.weight'].float()
+        out[base + '.weight'] = w
+        out[base + '.bias'] = sd[base + '.bias'].float()
+    return out
+
+
+def hifigan_flax_to_state_dict(params, cfg) -> dict:
+    """The JAX package's generator params (``{'params': ...}`` or the inner
+    dict) -> the plain ``state_dict`` of ``models.hifigan.Generator``, the
+    inverse of ``hifigan_torch_to_flax`` (:388): a conv kernel (K, I, O)
+    goes to (O, I, K); an upsample's kernel, stored flipped on K as
+    (K, I, O), goes to (I, O, K) unflipped."""
+    tree = params.get('params', params)
+    out = {}
+    for base, transposed in _hifigan_bases(cfg):
+        node = tree
+        parts = base.split('.')
+        if parts[0] == 'resblocks':
+            node = tree[f'resblocks_{parts[1]}'][f'{parts[2]}_{parts[3]}']
+        else:
+            node = tree[base.replace('.', '_')]
+        k = np.asarray(node['kernel'], dtype=np.float32)
+        w = k[::-1].transpose(1, 2, 0) if transposed else k.transpose(2, 1, 0)
+        out[base + '.weight'] = torch.from_numpy(np.array(w, order='C'))
+        out[base + '.bias'] = torch.from_numpy(
+            np.asarray(node['bias'], dtype=np.float32).copy())
+    return out
 
 
 def load_checkpoint(path: str) -> dict:

@@ -58,13 +58,21 @@ def seeded_tree(tree, seed: int):
 
 
 def jax_model_and_params(seed: int = 0, **overrides):
+    """The JAX GradTTS at the tiny widths (``overrides`` change them or add
+    speakers) and a param tree drawn from ``seed``. A speaker model is
+    initialised with a speaker (id 0, or a zero vector for ``n_spks``
+    -1), so that its speaker MLP has parameters."""
     hp = {**TINY, **overrides}
     model = JaxGradTTS(n_vocab=N_VOCAB, **hp)
     x = jnp.ones((1, 8), jnp.int32)
     y = jnp.zeros((1, 16, hp['n_feats']), jnp.float32)
+    n_spks = hp.get('n_spks', 1)
+    spk = (jnp.zeros((1,), jnp.int32) if n_spks > 1 else
+           jnp.zeros((1, hp.get('spk_emb_dim', 64))) if n_spks == -1
+           else None)
     # every leaf is redrawn, so the tree's shapes are all that init must give
     shapes = jax.eval_shape(model.init, jax.random.PRNGKey(0), x,
-                            jnp.array([8]), y, jnp.array([16]))
+                            jnp.array([8]), y, jnp.array([16]), spk)
     return model, seeded_tree(shapes, seed)
 
 
@@ -96,9 +104,11 @@ CMUDICT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), 'resources', 'cmu_dictionary')
 
 
-def write_corpus(directory, n_items: int = 5, sr: int = 22050):
+def write_corpus(directory, n_items: int = 5, sr: int = 22050,
+                 speakers=None):
     """Synthetic wavs (a sine plus noise, 0.3-0.7 s, PCM16) and their
-    ``path|text`` filelist in ``directory``; returns the filelist's path."""
+    ``path|text`` filelist in ``directory`` (``path|text|speaker`` lines
+    with ``speakers``, one id an item); returns the filelist's path."""
     from scipy.io import wavfile
     lines = []
     for i in range(n_items):
@@ -108,7 +118,8 @@ def write_corpus(directory, n_items: int = 5, sr: int = 22050):
                + 0.05 * rng.standard_normal(t.shape))
         path = str(directory / f'{i}.wav')
         wavfile.write(path, sr, (wav * 32767).astype(np.int16))
-        lines.append(f'{path}|hello world, number {i}.')
+        lines.append(f'{path}|hello world, number {i}.'
+                     + (f'|{speakers[i]}' if speakers is not None else ''))
     filelist = directory / 'list.txt'
     filelist.write_text('\n'.join(lines) + '\n')
     return str(filelist)

@@ -375,3 +375,65 @@ def test_maximum_path_kernel_routes_equal_plain(cuda, shape, scale):
     torch.cuda.synchronize()
     assert mas.maximum_path.launches == before + 1
     assert torch.equal(got, mas.maximum_path_plain(value, mask))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_generator_on_gpu_matches_cpu(cuda, dtype):
+    # the HiFi-GAN V1 generator at its full width: cuDNN's convolutions on
+    # the GPU, oneDNN's on the CPU; f32 with TF32 off within 1e-4 of the
+    # [-1, 1] waveform. bf16 on the GPU against f32 on the CPU within the
+    # JAX package's bf16 bounds (tests/test_hifigan.py)
+    from gradtts_tpu_torch.models.hifigan import Generator
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.manual_seed(0)
+    gen = Generator().eval()
+    mel = torch.tensor(np.random.default_rng(7).standard_normal((2, 32, 80)),
+                       dtype=torch.float32)
+    with torch.no_grad():
+        want = gen(mel)
+        gen = gen.to(cuda)
+        gen.compute_dtype = dtype
+        got = gen(mel.to(cuda)).cpu()
+    diff = (got - want).abs()
+    if dtype == torch.float32:
+        assert float(diff.max()) <= 1e-4
+    else:
+        assert float(diff.max()) < 0.05 and float(diff.mean()) < 5e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('spk_setup', ['ids', 'vectors', 'encoder'])
+def test_speaker_synthesis_on_gpu_matches_cpu(cuda, spk_setup):
+    # 4-step synthesis of a tiny speaker model whose every weight is drawn
+    # as chip_smoke.py draws them (scaled so that the random score keeps
+    # the steps finite; non-zero ReZero gains): K1-K3 on the GPU, their
+    # plain versions on the CPU; f32 with TF32 off
+    from chip_smoke import seeded_state_dict
+    from gradtts_tpu_torch.models.tts import GradTTS, synthesize
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    hp = {'ids': dict(n_spks=5), 'vectors': dict(n_spks=-1),
+          'encoder': dict(n_spks=5, encoder_speaker=True)}[spk_setup]
+    torch.manual_seed(0)
+    model = GradTTS(n_vocab=40, n_enc_channels=32, filter_channels=64,
+                    filter_channels_dp=16, n_heads=2, n_enc_layers=1,
+                    n_feats=80, dec_dim=16, spk_emb_dim=8, **hp).eval()
+    model.load_state_dict(seeded_state_dict(model, seed=1), strict=True)
+    x = torch.randint(1, 40, (2, 12))
+    x_lengths = torch.tensor([12, 7])
+    spk = torch.tensor([3, 1]) if hp['n_spks'] > 1 else torch.randn(2, 8)
+    noise = torch.randn(2, 64, 80)
+    outs = []
+    launches = tla.attention_stats.launches
+    for dev in (cuda, torch.device('cpu')):
+        m = model.to(dev)
+        res = synthesize(m, x.to(dev), x_lengths.to(dev), 4, 64,
+                         noise=noise.to(dev), spk=spk.to(dev))
+        outs.append([o.cpu() for o in res])
+    assert tla.attention_stats.launches == launches + 6 * 4
+    (g_enc, g_dec, g_attn, g_len, _), (c_enc, c_dec, c_attn, c_len, _) = outs
+    assert torch.equal(g_len, c_len) and torch.equal(g_attn, c_attn)
+    scale = float(c_dec.abs().max())
+    assert float((g_dec - c_dec).abs().max()) <= 1e-3 * scale

@@ -1,7 +1,7 @@
 """Package rules of gradtts_tpu_torch: it imports neither JAX nor the JAX
 package, its entry points (synthesis, n-best scoring) never fall back to
-the CPU, it refuses the presets it does not port yet, and its CPU paths
-launch no kernel."""
+the CPU, it builds every preset of the JAX package and loads its weights,
+and its CPU paths launch no kernel."""
 
 import os
 import subprocess
@@ -10,7 +10,12 @@ import sys
 import pytest
 import torch
 
-from _torch_port import TINY, N_VOCAB
+import jax
+import jax.numpy as jnp
+
+from _torch_port import TINY, N_VOCAB, seeded_tree
+from gradtts_tpu.config import get_config as jax_get_config
+from gradtts_tpu.models import GradTTS as JaxGradTTS
 from gradtts_tpu_torch.cli.inference import main as inference_main
 from gradtts_tpu_torch.cli.nbest import main as nbest_main
 from gradtts_tpu_torch.config import get_config
@@ -19,6 +24,7 @@ from gradtts_tpu_torch.nbest.scoring import score_batch
 from gradtts_tpu_torch.ops import groupnorm_mish as tgn
 from gradtts_tpu_torch.ops import linear_attention as tla
 from gradtts_tpu_torch.ops import mas as tmas
+from gradtts_tpu_torch.utils.convert import flax_params_to_state_dict
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -34,9 +40,10 @@ bad = sorted(m for m in sys.modules
 print(len(names), 'modules;', 'forbidden:', bad)
 assert not bad
 for needed in ('likelihood.ode', 'likelihood.sde', 'nbest.scoring',
-               'nbest.sweep', 'cli.nbest'):
+               'nbest.sweep', 'cli.nbest', 'models.hifigan',
+               'data.dataset', 'utils.convert'):
     assert 'gradtts_tpu_torch.' + needed in names, needed
-assert len(names) >= 39
+assert len(names) >= 40
 """
 
 
@@ -69,9 +76,26 @@ def test_nbest_score_without_gpu_raises(monkeypatch, tmp_path):
 @pytest.mark.parametrize('preset,overrides', [
     ('libri-tts', {}), ('tedlium', {}), ('ljspeech', {'encoder_speaker': True}),
     ('tedlium-spk', {})])
-def test_speaker_presets_are_refused(preset, overrides):
-    with pytest.raises(NotImplementedError, match='single-speaker'):
-        GradTTS.from_config(get_config(preset, **overrides))
+def test_speaker_presets_build_and_load_jax_weights(preset, overrides):
+    """Each speaker preset at full width: the port's model takes the JAX
+    package's parameter tree of the same preset (seeded, every leaf)
+    strictly, shape for shape."""
+    jcfg = jax_get_config(preset, **overrides)
+    jmodel = JaxGradTTS.from_config(jcfg)
+    spk = (jnp.zeros((1,), jnp.int32) if jcfg.n_spks > 1
+           else jnp.zeros((1, jcfg.spk_emb_dim)))
+    shapes = jax.eval_shape(jmodel.init, jax.random.PRNGKey(0),
+                            jnp.ones((1, 8), jnp.int32), jnp.array([8]),
+                            jnp.zeros((1, 16, 80)), jnp.array([16]), spk)
+    sd = flax_params_to_state_dict(seeded_tree(shapes, 0))
+    cfg = get_config(preset, **overrides)
+    model = GradTTS.from_config(cfg)
+    model.load_state_dict(sd, strict=True)
+    assert model.n_spks == cfg.n_spks
+    # the speaker concat widens the encoder where there is a speaker table
+    assert (model.encoder.proj_m.weight.shape[1] > 192) == (
+        cfg.encoder_speaker and cfg.n_spks > 1)
+    assert hasattr(model, 'spk_emb') == (cfg.n_spks > 1)
 
 
 def test_cpu_path_launches_no_kernel():
