@@ -41,6 +41,14 @@ Phases, each printing one JSON line:
               likelihood_slice;
   6. vocoder_slice  the HiFi-GAN V1 generator on B 2 x 256 frames: f32 GPU
               against CPU, bf16 against f32 on the GPU;
+     mel_slice  the mel front end (mel_from_padded, f32 and int16 wire,
+              with lengths; mel_spectrogram and its gradient) on the GPU
+              against the CPU at the synthesis (B 8 x 768 frames) and
+              training (B 16 x 1024) buckets, with TF32 off and on;
+     vocoder_train_slice  one GAN step of HiFi-GAN V1 with MPD and MSD at
+              full width (B 2 x 8192 samples), GPU against CPU: losses
+              and gradients in f32 (the CPU taking the card's
+              leaky-ReLU slopes), gradients in f64;
   7. cli      python -m gradtts_tpu_torch.cli.inference on those
               checkpoints: Euler, --sampler dpm and --stoc with --vocoder
               (wavs read back), and -s 3 on the tedlium-spk model;
@@ -54,9 +62,17 @@ Phases, each printing one JSON line:
               the same crop offsets, diffusion times and noise;
  10. train    python -m gradtts_tpu_torch.cli.train --preset ljspeech on a
               synthetic 64-utterance corpus (B 16, bf16 compute, f32
-              parameters), a resumed step, cli.inference on its checkpoint;
-              then the train step timed in-process: launches per step,
-              steps/s, audio-s trained per second and the device share;
+              parameters, device mels by the auto rule), a resumed step,
+              cli.inference on its checkpoint; then the train step timed
+              in-process: launches per step, steps/s, audio-s trained per
+              second and the device share;
+     device_mel  the loader over that corpus with host mels and device
+              mels (f32 and int16 wire): batches equal, and the sustained
+              feed rate beside the train step's utterances/s;
+     vocoder_train  python -m gradtts_tpu_torch.cli.train_vocoder (V1,
+              B 16, segment 8192) on a synthetic 22.05 kHz corpus, a
+              resumed step, cli.inference --vocoder on its checkpoint; then
+              the GAN step timed in-process in f32, TF32 off and on;
      train_spk  the same for --preset tedlium-spk on a synthetic 16 kHz
               speaker corpus of Tx 192 x Ty 344 utterances (128-frame
               crops), utterances/s as well;
@@ -71,9 +87,10 @@ Phases, each printing one JSON line:
  13. likelihood  score_batch at B 8, Tx 128, Ty 512, 10-step Euler, bf16
               compute: hypotheses/s, launches per call, the device share;
  14. adaptive  one adaptive Dormand-Prince score_batch (B 2, Ty 256).
-Each timed path (synth, dpm8, waveform, multispeaker, train, train_spk,
-likelihood) sets the launch counts to 0 just before its main run and reads
-them just after. Then the total seconds, the card's name and power limit
+Each timed path (synth, dpm8, waveform, multispeaker, train,
+vocoder_train, train_spk, likelihood) sets the launch counts to 0 just
+before its main run and reads them just after (the GAN step launches no
+hand kernel). Then the total seconds, the card's name and power limit
 (nvidia-smi), the {"kernels": [...]} line, and last {"ok": true, "device":
 {...}}. Any failure exits non-zero before the last line; so does a machine
 without a GPU or a directory without the package.
@@ -1191,6 +1208,16 @@ def _train_log(log_dir, what):
     return epochs
 
 
+def _input_pipeline(proc, what):
+    """The mels a cli.train run took, from its log: on the card the auto
+    rule (train.device_mel None) must pick the device's."""
+    found = re.search(r'input pipeline: (\w+) mels', proc.stderr)
+    require(found and found.group(1) == 'device',
+            f'{what}: the CLI did not take device mels: '
+            f'{found.group(0) if found else "no input pipeline line"}')
+    return found.group(0)
+
+
 def phase_train(device, card):
     import shutil
     import numpy as np
@@ -1200,8 +1227,9 @@ def phase_train(device, card):
     shutil.rmtree(log_dir, ignore_errors=True)
     common = ['--preset', 'ljspeech', '--log-dir', log_dir, '--set',
               f'data.train_filelist_path={filelist}']
-    _, train_s = _run_cli('gradtts_tpu_torch.cli.train',
-                          common + ['--max-steps', str(TRAIN_STEPS)])
+    proc, train_s = _run_cli('gradtts_tpu_torch.cli.train',
+                             common + ['--max-steps', str(TRAIN_STEPS)])
+    route = _input_pipeline(proc, 'train')
     _, resume_s = _run_cli('gradtts_tpu_torch.cli.train',
                            common + ['--max-steps', '1'])
     epochs = _train_log(log_dir, 'train')
@@ -1221,8 +1249,8 @@ def phase_train(device, card):
             'train: inference from the trained checkpoint is malformed')
     return phase_train_step(device, card, filelist, {
         'cli_steps': TRAIN_STEPS, 'cli_seconds': train_s,
-        'resume_seconds': resume_s, 'inference_seconds': infer_s,
-        'epochs': epochs})
+        'input_pipeline': route, 'resume_seconds': resume_s,
+        'inference_seconds': infer_s, 'epochs': epochs})
 
 
 def phase_train_step(device, card, filelist=None, cli=None,
@@ -1231,7 +1259,7 @@ def phase_train_step(device, card, filelist=None, cli=None,
     corpus (written here when ``filelist`` is None): launches per step,
     steps/s, utterances/s, audio-s trained per second and the device
     share. Emits the ``phase`` line (with the CLI run's figures ``cli``,
-    where given)."""
+    where given). Returns (launches per step, utterances/s)."""
     import torch
     from gradtts_tpu_torch.config import get_config
     from gradtts_tpu_torch.data.dataset import (BatchCollate,
@@ -1293,7 +1321,7 @@ def phase_train_step(device, card, filelist=None, cli=None,
           'audio_s_trained_per_s': audio_s / per_step,
           'launches_per_step': counts, 'peak_memory_gib': peak / 2 ** 30,
           'metrics': {k: float(v) for k, v in metrics.items()}, **share})
-    return counts
+    return counts, TRAIN_B / per_step
 
 
 # ---- likelihood_slice -------------------------------------------------------
@@ -1932,16 +1960,470 @@ def phase_train_spk(device, card):
                                     SPK_CORPUS_ITEMS)
     log_dir = os.path.join(WORK, 'train_spk')
     shutil.rmtree(log_dir, ignore_errors=True)
-    _, train_s = _run_cli('gradtts_tpu_torch.cli.train', [
+    proc, train_s = _run_cli('gradtts_tpu_torch.cli.train', [
         '--preset', 'tedlium-spk', '--log-dir', log_dir, '--max-steps',
         str(SPK_TRAIN_STEPS), '--set',
         f'data.train_filelist_path={filelist}'])
+    route = _input_pipeline(proc, 'train_spk')
     epochs = _train_log(log_dir, 'train_spk')
     ckpt = os.path.join(log_dir, 'ckpt', f'step_{SPK_TRAIN_STEPS:08d}.pt')
     require(os.path.exists(ckpt), f'train_spk: no {os.path.basename(ckpt)}')
     return phase_train_step(device, card, filelist, {
         'cli_steps': SPK_TRAIN_STEPS, 'cli_seconds': train_s,
-        'epochs': epochs}, preset='tedlium-spk', phase='train_spk')
+        'input_pipeline': route, 'epochs': epochs}, preset='tedlium-spk',
+        phase='train_spk')
+
+
+# ---- mel_slice and device_mel -------------------------------------------------
+
+MEL_TOL = 1e-4          # absolute on the log-mel: GPU vs CPU, and TF32 on/off
+MEL_GRAD_TOL = 1e-3     # of the largest |d mean|mel| / dy|
+# the synthesis bucket (B 8 x 768 frames) and the training one (B 16 x 1024)
+MEL_BUCKETS = ((8, 768), (16, 1024))
+DEVICE_MEL_TOL = 2e-3   # device against host mels (tests/test_data.py:170)
+
+
+def _mel_inputs(rng, bsz, frames):
+    """PCM16 audio at the padded lengths that DeviceMelCollate gives each
+    utterance, zero past them ([bsz, (frames - 1) * HOP + 1024] int16),
+    and the frame lengths (the first item fills the bucket)."""
+    import numpy as np
+    import torch
+    S = (frames - 1) * HOP + 1024
+    lengths = np.linspace(frames, frames // 3, bsz).astype(np.int64)
+    pcm = np.zeros((bsz, S), np.int16)
+    for i, n in enumerate(lengths):
+        t = np.arange((n - 1) * HOP + 1024) / SR
+        wav = 0.3 * np.sin(2 * np.pi * rng.uniform(100, 400) * t) \
+            + 0.05 * rng.standard_normal(t.shape)
+        pcm[i, :t.size] = np.round(wav * 32767)
+    return torch.from_numpy(pcm), torch.from_numpy(lengths)
+
+
+def phase_mel_slice(device, card):
+    """The mel front end on the card against the CPU: ``mel_from_padded``
+    (f32 and int16 wire, with lengths) and ``mel_spectrogram`` at the
+    synthesis and training buckets, with TF32 off and on; the gradient of
+    mean |mel(y)| with respect to y; the time of one call (CUDA events,
+    host included)."""
+    import numpy as np
+    import torch
+    from gradtts_tpu_torch.data.mel import mel_from_padded, mel_spectrogram
+
+    rng = np.random.default_rng(50)
+    line, checks = {'phase': 'mel_slice', 'card': card, 'buckets': {}}, []
+    for bsz, frames in MEL_BUCKETS:
+        pcm, lengths = _mel_inputs(rng, bsz, frames)
+        gpu_pcm, gpu_lengths = pcm.to(device), lengths.to(device)
+        entry = {'samples': list(pcm.shape)}
+        for wire, y, gy in (('int16', pcm, gpu_pcm),
+                            ('float32', pcm.float() / 32768.0,
+                             gpu_pcm.float() / 32768.0)):
+            want = mel_from_padded(y, lengths)
+            got = {}
+            for tf32 in (False, True):
+                torch.backends.cuda.matmul.allow_tf32 = tf32
+                got[tf32] = mel_from_padded(gy, gpu_lengths).cpu()
+            torch.backends.cuda.matmul.allow_tf32 = False
+            err = float((got[False] - want).abs().max())
+            tf32_diff = float((got[True] - got[False]).abs().max())
+            tails = all(bool((got[False][i, n:] == 0).all())
+                        for i, n in enumerate(lengths.tolist()))
+            ms = cuda_ms(lambda: mel_from_padded(gy, gpu_lengths), 10)
+            entry[wire] = {'max_abs_err': err, 'tf32_on_vs_off': tf32_diff,
+                           'tails_zero': tails, 'ms': ms,
+                           'mel_range': [float(want.min()),
+                                         float(want.max())]}
+            checks += [(tuple(got[False].shape) == (bsz, frames, 80),
+                        f'mel_slice: shape {tuple(got[False].shape)}'),
+                       (err <= MEL_TOL, f'mel_slice {bsz}x{frames} {wire}: '
+                                        f'GPU vs CPU {err}'),
+                       (tf32_diff <= MEL_TOL, f'mel_slice: TF32 moved the '
+                                              f'mel by {tf32_diff}'),
+                       (tails, 'mel_slice: a tail frame is not 0')]
+        # the unpadded front end on whole utterances, and its gradient
+        y = (pcm[:, 384:384 + frames * HOP].float() / 32768.0)
+        want = mel_spectrogram(y)
+        got = mel_spectrogram(y.to(device)).cpu()
+        err = float((got - want).abs().max())
+        grads = []
+        for dev in (device, torch.device('cpu')):
+            w = y.to(dev).requires_grad_(True)
+            mel_spectrogram(w).abs().mean().backward()
+            grads.append(w.grad.cpu())
+        gscale = float(grads[1].abs().max())
+        gerr = float((grads[0] - grads[1]).abs().max())
+        entry['mel_spectrogram'] = {'max_abs_err': err,
+                                    'grad_max_abs_err': gerr,
+                                    'grad_max_abs': gscale}
+        checks += [(tuple(got.shape) == (bsz, frames, 80),
+                    f'mel_slice: mel_spectrogram shape {tuple(got.shape)}'),
+                   (err <= MEL_TOL, f'mel_slice: mel_spectrogram {err}'),
+                   (gscale > 0 and gerr <= MEL_GRAD_TOL * gscale,
+                    f'mel_slice: gradient {gerr} of {gscale}')]
+        line['buckets'][f'{bsz}x{frames}'] = entry
+    line['tol'] = {'mel': MEL_TOL, 'grad_of_max': MEL_GRAD_TOL}
+    _check(line, checks)
+
+
+def phase_device_mel(device, card, train_rate):
+    """The loader over the ``train`` corpus with host mels, device mels in
+    f32 and in int16: epoch 1's batches equal in shapes, lengths and ids,
+    ``y`` within DEVICE_MEL_TOL of the host mel; then the sustained feed
+    rate (the best of epochs 2-3, each batch forced onto the device) beside
+    the train step's own utterances/s."""
+    import torch
+    from gradtts_tpu_torch.config import get_config
+    from gradtts_tpu_torch.data.dataset import (BatchCollate, DataLoader,
+                                                dataset_from_config)
+    from gradtts_tpu_torch.train.loop import batch_to
+
+    filelist = write_corpus(os.path.join(WORK, 'corpus'), CORPUS_ITEMS)
+    cfg = get_config('ljspeech', **{'data.train_filelist_path': filelist})
+    line = {'phase': 'device_mel', 'card': card, 'utterances': CORPUS_ITEMS,
+            'batch': TRAIN_B, 'train_step_utterances_per_s': train_rate}
+    first, checks = {}, []
+    for name, kw in (('host', {}),
+                     ('device_f32', {'device_mel': True, 'device': device}),
+                     ('device_int16', {'device_mel': True, 'device': device,
+                                       'mel_upload_dtype': 'int16'})):
+        loader = DataLoader(dataset_from_config(cfg), TRAIN_B,
+                            BatchCollate(cfg.data.x_buckets,
+                                         cfg.data.y_buckets),
+                            shuffle=True, seed=cfg.train.seed, **kw)
+        seconds = []
+        for epoch in range(3):
+            t0 = time.perf_counter()
+            batches = [batch_to(b, device) for b in loader]
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            if epoch == 0:
+                first[name] = batches
+        n = len(first[name]) * TRAIN_B
+        line[name] = {'epoch_seconds': seconds,
+                      'utterances_per_s_epoch1': n / seconds[0],
+                      'utterances_per_s_sustained': n / min(seconds[1:])}
+    for name in ('device_f32', 'device_int16'):
+        errs = []
+        for h, d in zip(first['host'], first[name]):
+            checks += [(h['y'].shape == d['y'].shape and all(
+                torch.equal(h[k], d[k]) for k in ('x', 'x_lengths',
+                                                  'y_lengths')),
+                f'device_mel {name}: shapes, lengths or ids differ')]
+            errs.append(float((h['y'] - d['y']).abs().max()))
+        line[name]['y_max_abs_err'] = err = max(errs, default=math.inf)
+        checks.append((len(first[name]) == len(first['host'])
+                       and err <= DEVICE_MEL_TOL,
+                       f'device_mel {name}: y differs by {err}'))
+    line['y_shapes'] = [list(b['y'].shape) for b in first['host']]
+    line['tol'] = DEVICE_MEL_TOL
+    _check(line, checks)
+
+
+# ---- vocoder_train_slice and vocoder_train ------------------------------------
+
+VOC_SEGMENT = 8192
+VOC_SLICE_B = 2
+VOC_LOSS_RTOL = 1e-4     # the seven losses, GPU vs CPU (f32, TF32 off)
+VOC_GRAD_TOL = 1e-3      # of each gradient's largest value
+# The GAN gradient is not continuous in its inputs: where a leaky ReLU's
+# input lies within rounding of 0, the two devices may take other slopes,
+# and that element's upstream gradient moves by 0.9 of itself. So the CPU
+# step replays the card's slopes (slope_replay), and every element whose
+# slope that flips must lie within VOC_FLIP_TOL of its call's largest
+# input; f64 steps, where rounding is ~1e-16, are held without the replay.
+VOC_FLIP_TOL = 1e-4
+VOC_B, VOC_CORPUS_ITEMS, VOC_CLI_STEPS = 16, 32, 2
+
+
+def _vocoder_batch(rng, bsz):
+    """Audio segments and their input and loss mels, as VocoderMelDataset
+    makes them."""
+    import numpy as np
+    from gradtts_tpu_torch.data.mel import mel_spectrogram_np
+    t = np.arange(VOC_SEGMENT) / SR
+    audio = np.stack([0.5 * np.sin(2 * np.pi * rng.uniform(100, 400) * t)
+                      + 0.05 * rng.standard_normal(t.shape)
+                      for _ in range(bsz)]).astype(np.float32)
+    return {'mel': mel_spectrogram_np(audio), 'audio': audio,
+            'mel_loss': mel_spectrogram_np(audio, fmax=SR / 2.0)}
+
+
+def slope_record():
+    """A torch function mode that records, call by call, which inputs of
+    ``F.leaky_relu`` are > 0: the elements that take slope 1."""
+    import torch.nn.functional as F
+    from torch.overrides import TorchFunctionMode
+
+    class SlopeRecord(TorchFunctionMode):
+        def __init__(self):
+            super().__init__()
+            self.masks = []
+
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            if func is F.leaky_relu:
+                self.masks.append(args[0].detach() > 0)
+            return func(*args, **(kwargs or {}))
+
+    return SlopeRecord()
+
+
+def slope_replay(masks):
+    """A torch function mode that computes ``F.leaky_relu`` with the slopes
+    of ``masks`` (slope_record's, call by call) and counts the elements
+    whose own slope differs (``flipped`` of ``elements``), with the largest
+    such input over its call's largest (``worst_flip``)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.overrides import TorchFunctionMode
+
+    class SlopeReplay(TorchFunctionMode):
+        def __init__(self):
+            super().__init__()
+            self.calls = self.flipped = self.elements = 0
+            self.worst_flip = 0.0
+
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            if func is not F.leaky_relu:
+                return func(*args, **kwargs)
+            x = args[0]
+            slope = args[1] if len(args) > 1 else \
+                kwargs.get('negative_slope', 0.01)
+            mask = masks[self.calls].to(x.device)
+            self.calls += 1
+            flip = (x.detach() > 0) != mask
+            self.flipped += int(flip.sum())
+            self.elements += x.numel()
+            if flip.any():
+                self.worst_flip = max(self.worst_flip, float(
+                    x.detach()[flip].abs().max() / x.detach().abs().max()))
+            return torch.where(mask, x, x * slope)
+
+    return SlopeReplay()
+
+
+def _gan_step_grads(cfg, device, batch, dtype=None, slopes=None):
+    """One GAN step from the seeded state on ``device`` in ``dtype`` (f32
+    unless given), inside the torch function mode ``slopes`` where given:
+    (losses, {leaf: gradient on the CPU}, seconds)."""
+    import contextlib
+    import torch
+    from gradtts_tpu_torch.train.vocoder import (init_vocoder_state,
+                                                 make_vocoder_train_step)
+    dtype = dtype or torch.float32
+    state = init_vocoder_state(cfg, device, steps_per_epoch=100, seed=52)
+    for module in (state.generator, state.mpd, state.msd):
+        module.to(dtype)
+    state.generator.compute_dtype = dtype
+    batch = {k: torch.from_numpy(v).to(device, dtype)
+             for k, v in batch.items()}
+    t0 = time.perf_counter()
+    with slopes or contextlib.nullcontext():
+        metrics = make_vocoder_train_step(cfg)(state, batch)
+    metrics = {k: float(v) for k, v in metrics.items()}
+    return metrics, {f'{m}.{n}': p.grad.cpu()
+                     for m in ('generator', 'mpd', 'msd')
+                     for n, p in getattr(state, m).named_parameters()}, \
+        time.perf_counter() - t0
+
+
+def grad_errors(got, want):
+    """{leaf: max |got - want| over max |want|}."""
+    return {k: float((got[k] - v).abs().max() / v.abs().max())
+            for k, v in want.items()}
+
+
+def gan_step_on_card_and_cpu(cfg, device, batch):
+    """One f32 GAN step on the card (slopes recorded) and on the CPU
+    (the card's slopes replayed): (card losses, CPU losses, {leaf: gradient
+    error}, the replay, seconds on the card, seconds on the CPU)."""
+    record = slope_record()
+    g_m, g_g, g_s = _gan_step_grads(cfg, device, batch, slopes=record)
+    replay = slope_replay([m.cpu() for m in record.masks])
+    c_m, c_g, c_s = _gan_step_grads(cfg, 'cpu', batch, slopes=replay)
+    assert replay.calls == len(record.masks), (replay.calls,
+                                               len(record.masks))
+    return g_m, c_m, grad_errors(g_g, c_g), replay, g_s, c_s
+
+
+def phase_vocoder_train_slice(device):
+    """One full GAN step of HiFi-GAN V1 with MPD and MSD at full width on
+    the card against the CPU, from the same seeded weights and batch (B 2 x
+    8192 samples, TF32 off): in f32, the seven losses within VOC_LOSS_RTOL
+    and each gradient within VOC_GRAD_TOL of its largest value, the CPU
+    taking the card's leaky-ReLU slopes, each flipped slope's input within
+    VOC_FLIP_TOL of its call's largest; in f64, each gradient within
+    VOC_GRAD_TOL with no replay."""
+    import numpy as np
+    import torch
+    from gradtts_tpu_torch.models.hifigan import HiFiGANConfig
+
+    cfg = HiFiGANConfig()
+    batch = _vocoder_batch(np.random.default_rng(51), VOC_SLICE_B)
+    cpu = torch.device('cpu')
+    g_m, c_m, f32, replay, g_s, c_s = gan_step_on_card_and_cpu(cfg, device,
+                                                               batch)
+    g64_m, g64_g, _ = _gan_step_grads(cfg, device, batch, dtype=torch.float64)
+    c64_m, c64_g, c64_s = _gan_step_grads(cfg, cpu, batch,
+                                          dtype=torch.float64)
+    f64 = grad_errors(g64_g, c64_g)
+    loss_err = {k: abs(g_m[k] - v) / abs(v) for k, v in c_m.items()}
+    worst32, worst64 = (max(e, key=e.get) for e in (f32, f64))
+    line = {'phase': 'vocoder_train_slice', 'batch': VOC_SLICE_B,
+            'segment': VOC_SEGMENT, 'metrics_gpu': g_m, 'metrics_cpu': c_m,
+            'loss_rel_err': loss_err, 'grad_leaves': len(f32),
+            'f32_grad_worst': [worst32, f32[worst32]],
+            'leaky_relu_calls': replay.calls,
+            'leaky_relu_elements': replay.elements,
+            'slopes_flipped': replay.flipped,
+            'flip_input_of_max': replay.worst_flip,
+            'f64_grad_worst': [worst64, f64[worst64]],
+            'f64_loss_rel_err': max(abs(g64_m[k] - v) / abs(v)
+                                    for k, v in c64_m.items()),
+            'seconds': {'gpu_first_step': g_s, 'cpu': c_s, 'cpu_f64': c64_s},
+            'tol': {'loss_rel': VOC_LOSS_RTOL, 'grad_of_max': VOC_GRAD_TOL,
+                    'flip_input_of_max': VOC_FLIP_TOL}}
+    _check(line, [(all(np.isfinite(v) for v in c_m.values()),
+                   f'vocoder_train_slice: CPU losses {c_m}'),
+                  (max(loss_err.values()) <= VOC_LOSS_RTOL,
+                   f'vocoder_train_slice: losses {loss_err}'),
+                  (replay.worst_flip <= VOC_FLIP_TOL,
+                   f'vocoder_train_slice: a flipped slope\'s input is '
+                   f'{replay.worst_flip} of its largest'),
+                  (f32[worst32] <= VOC_GRAD_TOL,
+                   f'vocoder_train_slice: f32 gradient {worst32} '
+                   f'{f32[worst32]}'),
+                  (f64[worst64] <= VOC_GRAD_TOL,
+                   f'vocoder_train_slice: f64 gradient {worst64} '
+                   f'{f64[worst64]}')])
+
+
+def write_vocoder_corpus(directory, n_items):
+    """``n_items`` 22.05 kHz wavs of 0.3-2 s (some shorter than the 8192
+    sample segment) and their ``name|text`` filelist."""
+    import numpy as np
+    from scipy.io import wavfile
+    os.makedirs(directory, exist_ok=True)
+    rng = np.random.default_rng(53)
+    lines = []
+    for i in range(n_items):
+        t = np.arange(int(SR * (0.3 + 1.7 * i / (n_items - 1)))) / SR
+        wav = 0.3 * np.sin(2 * np.pi * rng.uniform(100, 400) * t) \
+            + 0.05 * rng.standard_normal(t.shape)
+        wavfile.write(os.path.join(directory, f'v{i:03d}.wav'), SR,
+                      (wav * 32767).astype(np.int16))
+        lines.append(f'v{i:03d}|synthetic utterance {i}')
+    filelist = os.path.join(directory, 'train.txt')
+    with open(filelist, 'w', encoding='utf-8') as f:
+        f.write('\n'.join(lines) + '\n')
+    return filelist
+
+
+def phase_vocoder_train(device, card, ckpt):
+    """python -m gradtts_tpu_torch.cli.train_vocoder (V1, B 16, segment
+    8192) on a synthetic corpus: a few steps, one resumed step, then
+    cli.inference --vocoder on its checkpoint; then the GAN step timed
+    in-process, f32 with TF32 off (the held setting) and on."""
+    import shutil
+    import numpy as np
+    import torch
+    from gradtts_tpu_torch.data.dataset import DataLoader
+    from gradtts_tpu_torch.data.vocoder_dataset import (VocoderBatchCollate,
+                                                        VocoderMelDataset,
+                                                        vocoder_filelists)
+    from gradtts_tpu_torch.models.hifigan import HiFiGANConfig
+    from gradtts_tpu_torch.train.loop import batch_to
+    from gradtts_tpu_torch.train.vocoder import (init_vocoder_state,
+                                                 make_vocoder_train_step)
+
+    wav_dir = os.path.join(WORK, 'vocoder_corpus')
+    filelist = write_vocoder_corpus(wav_dir, VOC_CORPUS_ITEMS)
+    log_dir = os.path.join(WORK, 'vocoder_train')
+    shutil.rmtree(log_dir, ignore_errors=True)
+    common = ['--input-wavs-dir', wav_dir, '--input-training-file',
+              filelist, '--log-dir', log_dir, '--batch-size', str(VOC_B),
+              '--epochs', '1']
+    _, train_s = _run_cli('gradtts_tpu_torch.cli.train_vocoder',
+                          common + ['--max-steps', str(VOC_CLI_STEPS)])
+    _, resume_s = _run_cli('gradtts_tpu_torch.cli.train_vocoder',
+                           common + ['--max-steps', '1'])
+    epochs = _train_log(log_dir, 'vocoder_train')
+    vckpt = os.path.join(log_dir, 'ckpt', f'step_{VOC_CLI_STEPS + 1:08d}.pt')
+    require(os.path.exists(vckpt), 'vocoder_train: the resumed run wrote no '
+                                   f'{os.path.basename(vckpt)}')
+    texts = os.path.join(WORK, 'vocoder_texts.txt')
+    with open(texts, 'w', encoding='utf-8') as f:
+        f.write('A vocoder trained on the card.\n')
+    out = os.path.join(WORK, 'vocoder_cli_out')
+    _, infer_s = _run_cli('gradtts_tpu_torch.cli.inference', [
+        '-f', texts, '-c', ckpt, '-o', out, '-t', str(STEPS), '--vocoder',
+        vckpt])
+    wav_shape = _cli_outputs(out, 1, wav=True)
+
+    cfg = HiFiGANConfig()
+    dataset = VocoderMelDataset(vocoder_filelists(filelist, filelist,
+                                                  wav_dir)[0], seed=54)
+    batch = batch_to(next(iter(DataLoader(dataset, VOC_B,
+                                          VocoderBatchCollate(), seed=54))),
+                     device)
+    state = init_vocoder_state(cfg, device, steps_per_epoch=100, seed=55)
+    step = make_vocoder_train_step(cfg)
+    audio_s = VOC_B * VOC_SEGMENT / SR
+    line = {'phase': 'vocoder_train', 'card': card, 'batch': VOC_B,
+            'segment': VOC_SEGMENT, 'audio_s_per_step': audio_s,
+            'cli_steps': VOC_CLI_STEPS, 'cli_seconds': train_s,
+            'resume_seconds': resume_s, 'inference_seconds': infer_s,
+            'inference_outputs': wav_shape, 'epochs': epochs}
+
+    def run():
+        metrics = step(state, batch)
+        torch.cuda.synchronize()
+        return metrics
+
+    counts = None
+    for tf32 in (False, True):
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        torch.backends.cudnn.allow_tf32 = tf32
+        for _ in range(2):                          # warm-up
+            run()
+        reset_counts()
+        metrics = run()                             # the main path's run
+        counts = read_counts()
+        require(not any(counts.values()), 'vocoder_train: the GAN step '
+                                          f'launched a hand kernel {counts}')
+        require(all(np.isfinite(float(v)) for v in metrics.values()),
+                f'vocoder_train: losses not finite {metrics}')
+        torch.cuda.reset_peak_memory_stats(device)
+        times = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            run()
+            times.append(time.perf_counter() - t0)
+        per_step = statistics.median(times)
+        # steps queued back to back: the device's own time a step (the
+        # profiler's sum of kernel times is reported beside it)
+        dev_ms = device_ms(lambda: step(state, batch), reps=5)
+        share = _device_share(run, per_step * 1e3, 'vocoder_train')
+        line['tf32_on' if tf32 else 'tf32_off'] = {
+            'seconds_per_step': per_step, 'seconds_all': times,
+            'device_ms_per_step': dev_ms,
+            'device_idle_share_queued': max(0.0, 1 - dev_ms / (per_step
+                                                              * 1e3)),
+            'steps_per_s': 1 / per_step,
+            'audio_s_trained_per_s': audio_s / per_step,
+            'peak_memory_gib': torch.cuda.max_memory_allocated(device)
+            / 2 ** 30,
+            'metrics': {k: float(v) for k, v in metrics.items()},
+            'device_busy_ms': share['device_busy_ms'],
+            'device_idle_share': share['device_idle_share'],
+            'device_kernels': share['device_kernels'],
+            'family_ms': share['family_ms'],
+            'top_device_ms': share['top_device_ms']}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    emit(line)
+    return counts
 
 
 HAND_KERNELS = ('gn_stats_kernel', 'gn_apply_kernel', 'la_stats_kernel',
@@ -2053,14 +2535,18 @@ def main():
         phase_samplers_slice(device, ckpt)
         spk_ckpt = phase_speakers_slice(device)
         vocoder_ckpt = phase_vocoder_slice(device)
+        phase_mel_slice(device, card)
+        phase_vocoder_train_slice(device)
         phase_cli(ckpt, spk_ckpt, vocoder_ckpt)
         counts = {'synth': phase_synth(device, card)}
         counts['dpm8'] = phase_dpm8(device, card)
         counts['waveform'] = phase_waveform(device, card)
         counts['multispeaker'] = phase_multispeaker(device, card)
         phase_train_slice(device, ckpt)
-        counts['train'] = phase_train(device, card)
-        counts['train_spk'] = phase_train_spk(device, card)
+        counts['train'], train_rate = phase_train(device, card)
+        phase_device_mel(device, card, train_rate)
+        counts['vocoder_train'] = phase_vocoder_train(device, card, ckpt)
+        counts['train_spk'], _ = phase_train_spk(device, card)
         phase_likelihood_slice(device, ckpt)
         phase_nbest_cli(ckpt, spk_ckpt)
         counts['likelihood'] = phase_likelihood(device, card, ckpt)

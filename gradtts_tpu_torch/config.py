@@ -93,10 +93,10 @@ class TrainConfig:
     use_bf16_compute: bool = True
     # The training fields mirror gradtts_tpu.config so that a preset reads
     # the same in both packages. The port's trainer (train/loop.py) runs on
-    # one GPU with host mels and no remat: it refuses remat_estimator=True,
-    # device_mel=True, mesh_data other than -1 or 1 and mesh_model other
-    # than 1 (None picks the host mel, as the JAX package's auto setting
-    # does off a TPU).
+    # one device with no remat: it refuses remat_estimator=True, mesh_data
+    # other than -1 or 1 and mesh_model other than 1. device_mel True
+    # computes the mels on the trainer's device, False on the host; None
+    # picks the device on a GPU in one process and the host on the CPU.
     remat_estimator: bool = False
     device_mel: Optional[bool] = None
 

@@ -1,7 +1,9 @@
-"""HiFi-GAN V1 generator: mel [B, T, 80] -> waveform [B, T * 256].
+"""HiFi-GAN V1 generator: mel [B, T, 80] -> waveform [B, T * 256]; the
+multi-period and multi-scale discriminators and the GAN losses.
 
 Counterpart of gradtts_tpu/models/hifigan.py (``HiFiGANConfig`` :35-69,
-``ResBlock1`` :155, ``ResBlock2`` :176, ``Generator`` :193-240). The
+``ResBlock1`` :155, ``ResBlock2`` :176, ``Generator`` :193-240, the
+discriminators and losses :243-370). The
 module holds plain weights, as the JAX package does after folding the
 reference checkpoint's weight norm (``utils.convert.load_hifigan_state_dict``);
 its keys are the reference torch generator's (``conv_pre.weight``,
@@ -16,6 +18,12 @@ parameters, as in the JAX package: a ``Conv1d`` adds its bias in bf16 (the
 rule of Flax's ``nn.Conv``), an upsample adds its bias in f32 and rounds
 once (``ConvTranspose1dTorch`` :108); the output's tanh and the parameters
 stay f32.
+
+The discriminators are f32 with plain kernels, as in the JAX package (the
+upstream reference's weight norm, and spectral norm on the first scale,
+are left out there too). ``DiscriminatorP`` runs ``Conv2d`` on
+[B, 1, T / p, p] and ``DiscriminatorS`` grouped ``Conv1d``s; their feature
+maps are NCHW / NCW, the JAX package's NHWC / NWC transposed.
 """
 
 import json
@@ -68,6 +76,12 @@ class HiFiGANConfig:
                     if isinstance(v, list) else v)
                 for k, v in d.items() if k in names}
         return cls(**keep)
+
+
+def _wide(t):
+    """``t`` in f32 for the bias adds of the upsamples and the tanh, or in
+    f64 where the model runs in f64."""
+    return t if t.dtype == torch.float64 else t.float()
 
 
 def _conv(x, conv: nn.Conv1d, dilation: int = 1):
@@ -145,10 +159,154 @@ class Generator(nn.Module):
             u = up.stride[0]
             y = F.conv_transpose1d(x, up.weight.to(x.dtype), None, u,
                                    (up.kernel_size[0] - u) // 2)
-            x = (y.float() + up.bias[:, None]).to(x.dtype)
+            x = (_wide(y) + up.bias[:, None]).to(x.dtype)
             xs = None
             for block in self.resblocks[i * n_kernels:(i + 1) * n_kernels]:
                 xs = block(x) if xs is None else xs + block(x)
             x = xs / n_kernels
         x = F.leaky_relu(x)                      # slope 0.01, as the reference
-        return torch.tanh(_conv(x, self.conv_post).float())[:, 0]
+        return torch.tanh(_wide(_conv(x, self.conv_post)))[:, 0]
+
+
+# --- discriminators and losses (vocoder training) -----------------------------
+
+
+class DiscriminatorP(nn.Module):
+    """Period discriminator (:243): [B, T] reflect-padded to a multiple of
+    ``period``, folded to [B, 1, T / p, p], five (k, 1) convolutions and a
+    (3, 1) one. Returns (scores [B, n], feature maps)."""
+
+    def __init__(self, period: int, kernel_size: int = 5, stride: int = 3):
+        super().__init__()
+        self.period = period
+        pad = (kernel_size - 1) // 2
+        chans = (1, 32, 128, 512, 1024)
+        self.convs = nn.ModuleList(
+            nn.Conv2d(i, o, (kernel_size, 1), (stride, 1), (pad, 0))
+            for i, o in zip(chans[:-1], chans[1:]))
+        self.convs.append(nn.Conv2d(1024, 1024, (kernel_size, 1), 1, (2, 0)))
+        self.conv_post = nn.Conv2d(1024, 1, (3, 1), 1, (1, 0))
+
+    def forward(self, x):
+        b, t = x.shape
+        if t % self.period:
+            n_pad = self.period - t % self.period
+            x = F.pad(x[:, None], (0, n_pad), mode='reflect')[:, 0]
+            t += n_pad
+        x = x.reshape(b, 1, t // self.period, self.period)
+        fmap = []
+        for conv in self.convs:
+            x = F.leaky_relu(conv(x), LRELU_SLOPE)
+            fmap.append(x)
+        x = self.conv_post(x)
+        fmap.append(x)
+        return x.flatten(1), fmap
+
+
+# (out channels, kernel, stride, groups, padding) of DiscriminatorS (:283)
+_SCALE_CONVS = ((128, 15, 1, 1, 7), (128, 41, 2, 4, 20), (256, 41, 2, 16, 20),
+                (512, 41, 4, 16, 20), (1024, 41, 4, 16, 20),
+                (1024, 41, 1, 16, 20), (1024, 5, 1, 1, 2))
+
+
+class DiscriminatorS(nn.Module):
+    """Scale discriminator (:274): seven 1-D convolutions, five grouped,
+    and a post convolution on [B, 1, T]. Returns (scores, feature maps)."""
+
+    def __init__(self):
+        super().__init__()
+        chans = (1,) + tuple(c[0] for c in _SCALE_CONVS)
+        self.convs = nn.ModuleList(
+            nn.Conv1d(i, o, k, s, p, groups=g)
+            for i, (o, k, s, g, p) in zip(chans, _SCALE_CONVS))
+        self.conv_post = nn.Conv1d(1024, 1, 3, 1, 1)
+
+    def forward(self, x):
+        x = x[:, None]
+        fmap = []
+        for conv in self.convs:
+            x = F.leaky_relu(conv(x), LRELU_SLOPE)
+            fmap.append(x)
+        x = self.conv_post(x)
+        fmap.append(x)
+        return x.flatten(1), fmap
+
+
+class MultiPeriodDiscriminator(nn.Module):
+    """Periods 2, 3, 5, 7, 11 (:297). ``forward(y, y_hat)`` returns the
+    scores of the real and generated audio and their feature maps, one
+    entry a discriminator."""
+
+    def __init__(self, periods=(2, 3, 5, 7, 11)):
+        super().__init__()
+        self.discriminators = nn.ModuleList(DiscriminatorP(p)
+                                            for p in periods)
+
+    def forward(self, y, y_hat):
+        return _by_kind([(d(y), d(y_hat)) for d in self.discriminators])
+
+
+def _avg_pool1d(x, window=4, stride=2, padding=2):
+    """[B, T] average pool over zero-padded edges; the padded zeros count
+    in the mean, as the JAX package divides every window by its size
+    (:313)."""
+    return F.avg_pool1d(x[:, None], window, stride, padding,
+                        count_include_pad=True)[:, 0]
+
+
+class MultiScaleDiscriminator(nn.Module):
+    """Three scale discriminators on the audio pooled 0, 1 and 2 times
+    (:320); ``forward`` as :class:`MultiPeriodDiscriminator`'s."""
+
+    def __init__(self, n_scales: int = 3):
+        super().__init__()
+        self.discriminators = nn.ModuleList(DiscriminatorS()
+                                            for _ in range(n_scales))
+
+    def forward(self, y, y_hat):
+        outs = []
+        for i, d in enumerate(self.discriminators):
+            if i:
+                y, y_hat = _avg_pool1d(y), _avg_pool1d(y_hat)
+            outs.append((d(y), d(y_hat)))
+        return _by_kind(outs)
+
+
+def _by_kind(outs):
+    """[((real scores, real maps), (generated scores, generated maps)), ...]
+    a discriminator -> (real scores, generated scores, real feature maps,
+    generated feature maps), each a list over the discriminators."""
+    return ([r[0] for r, _ in outs], [g[0] for _, g in outs],
+            [r[1] for r, _ in outs], [g[1] for _, g in outs])
+
+
+def feature_loss(fmap_r, fmap_g):
+    """2 x the sum over every feature map of mean |real - generated|."""
+    loss = 0.0
+    for dr, dg in zip(fmap_r, fmap_g):
+        for rl, gl in zip(dr, dg):
+            loss = loss + torch.mean(torch.abs(rl - gl))
+    return loss * 2
+
+
+def discriminator_loss(disc_real, disc_gen):
+    """Least-squares GAN loss of the discriminators: (sum, per-disc real
+    terms, per-disc generated terms)."""
+    loss, r_losses, g_losses = 0.0, [], []
+    for dr, dg in zip(disc_real, disc_gen):
+        r = torch.mean((1 - dr) ** 2)
+        g = torch.mean(dg ** 2)
+        loss = loss + r + g
+        r_losses.append(r)
+        g_losses.append(g)
+    return loss, r_losses, g_losses
+
+
+def generator_loss(disc_outputs):
+    """Least-squares GAN loss of the generator: (sum, per-disc terms)."""
+    loss, gen_losses = 0.0, []
+    for dg in disc_outputs:
+        term = torch.mean((1 - dg) ** 2)
+        gen_losses.append(term)
+        loss = loss + term
+    return loss, gen_losses

@@ -1,12 +1,15 @@
-"""Training checkpoints: ``ckpt/step_{:08d}.pt`` holding the step, the
-model's ``state_dict``, the optimizer's state and the generator's state,
-so a resumed run continues exactly.
+"""Training checkpoints: ``ckpt/step_{:08d}.pt``, a dict with the step and
+a trainer's payload, so a resumed run continues exactly.
 
 Counterpart of gradtts_tpu/train/checkpoint.py (Orbax directories there).
 Each file is written to a temporary name and renamed, so a crash while
-saving never leaves a partial latest checkpoint. The ``model`` entry is a
-reference-layout ``state_dict``: ``utils.convert.load_checkpoint`` and so
-``cli.inference`` read it.
+saving never leaves a partial latest checkpoint. The acoustic trainer
+(``train.loop``) stores 'model' (a reference-layout ``state_dict``, which
+``utils.convert.load_checkpoint`` and so ``cli.inference`` read),
+'optimizer' and 'generator' (the random generator's state); the vocoder
+trainer (``train.vocoder``) stores 'generator' (a plain-weight HiFi-GAN
+``state_dict``, which ``cli.inference --vocoder`` reads), 'mpd', 'msd',
+both optimizers and their LR schedules.
 """
 
 import os
@@ -19,13 +22,12 @@ import torch
 _NAME = re.compile(r'^step_(\d{8})\.pt$')
 
 
-def save_checkpoint(ckpt_dir: str, model, optimizer, step: int,
-                    generator) -> str:
+def save_checkpoint(ckpt_dir: str, step: int, payload: dict) -> str:
+    """Writes ``{'step': step, **payload}`` to ``ckpt_dir/step_{step}.pt``
+    atomically and returns its path."""
     os.makedirs(ckpt_dir, exist_ok=True)
     path = os.path.join(ckpt_dir, f'step_{step:08d}.pt')
-    payload = {'step': step, 'model': model.state_dict(),
-               'optimizer': optimizer.state_dict(),
-               'generator': generator.get_state()}
+    payload = {'step': step, **payload}
     fd, tmp = tempfile.mkstemp(suffix='.tmp', dir=ckpt_dir)
     os.close(fd)
     try:

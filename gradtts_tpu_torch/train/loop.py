@@ -9,8 +9,12 @@ The metrics stay on the device and are fetched every ``FLUSH_EVERY`` steps
 in one copy, never per step. TensorBoard scalars (the reference's names)
 are written when ``torch.utils.tensorboard`` imports. The dataset is the
 preset's (``dataset_from_config``: speaker ids or vectors where it has
-speakers), and a batch's ``spk`` goes to ``compute_loss``. Not ported: the
-epoch-end synthesis previews and plots, and multi-device training.
+speakers), and a batch's ``spk`` goes to ``compute_loss``. The mels come
+from the device (``DataLoader(device_mel=True)``) when
+``train.device_mel`` is True, or is None and the trainer runs on a GPU in
+one process, as the JAX package's auto rule picks them on its
+accelerator (:128-131); else from the host's numpy workers. Not ported:
+the epoch-end synthesis previews and plots, and multi-device training.
 """
 
 import logging
@@ -35,9 +39,11 @@ FLUSH_EVERY = 50       # steps between fetches of the metrics to the host
 
 class MetricsLogger:
     """TensorBoard scalars (when available) and the ``train.log`` text
-    file in ``log_dir``."""
+    file in ``log_dir``. ``add`` keeps a step's metrics (0-d tensors) on
+    the device and fetches them ``FLUSH_EVERY`` steps at a time in one
+    copy; ``end_epoch`` fetches the rest and writes the epoch's means."""
 
-    def __init__(self, log_dir):
+    def __init__(self, log_dir, names):
         os.makedirs(log_dir, exist_ok=True)
         try:
             from torch.utils.tensorboard import SummaryWriter
@@ -45,6 +51,8 @@ class MetricsLogger:
         except ImportError:          # tensorboard is not installed
             self._tb = None
         self._txt = open(os.path.join(log_dir, 'train.log'), 'a')
+        self.names = tuple(names)
+        self._pending, self._epoch = [], []
 
     def scalars(self, metrics: dict, step: int):
         if self._tb is not None:
@@ -54,6 +62,37 @@ class MetricsLogger:
     def text(self, msg: str):
         self._txt.write(msg + '\n')
         self._txt.flush()
+
+    def add(self, step: int, metrics: dict):
+        self._pending.append((step, metrics))
+        if len(self._pending) >= FLUSH_EVERY:
+            self._flush()
+
+    def _flush(self):
+        if not self._pending:
+            return
+        values = torch.stack([torch.stack([m[k] for k in self.names])
+                              for _, m in self._pending]).cpu().numpy()
+        for (at_step, _), row in zip(self._pending, values):
+            host = dict(zip(self.names, row.tolist()))
+            self._epoch.append(host)
+            self.scalars(host, at_step)
+        self._pending.clear()
+
+    def end_epoch(self, epoch: int, seconds: float) -> Optional[dict]:
+        """The means of the epoch's metrics, logged and written to
+        ``train.log``; None when the epoch had no step."""
+        self._flush()
+        if not self._epoch:
+            return None
+        means = {k: float(np.mean([m[k] for m in self._epoch]))
+                 for k in self.names}
+        self._epoch = []
+        msg = (f'epoch {epoch}: ' + ', '.join(
+            f'{k}={v:.4f}' for k, v in means.items()) + f' ({seconds:.1f}s)')
+        log.info(msg)
+        self.text(msg)
+        return means
 
     def close(self):
         if self._tb is not None:
@@ -69,11 +108,13 @@ class TrainResult(NamedTuple):
 
 
 def batch_to(batch: dict, device) -> dict:
-    """A collated numpy batch as tensors on ``device``: ids, lengths and
-    speaker ids int64, mels and speaker vectors f32."""
+    """A collated batch as tensors on ``device``: ids, lengths and speaker
+    ids int64, mels and speaker vectors f32. A field that is a tensor
+    already (the device mels) moves as it is."""
     out = {}
     for k, v in batch.items():
-        t = torch.from_numpy(np.asarray(v))
+        t = v if isinstance(v, torch.Tensor) else torch.from_numpy(
+            np.asarray(v))
         out[k] = (t if t.is_floating_point() else t.long()).to(
             device, non_blocking=True)
     return out
@@ -81,16 +122,13 @@ def batch_to(batch: dict, device) -> dict:
 
 def check_ported(cfg: GradTTSConfig) -> None:
     """Raises ValueError at a training setting the port cannot honour:
-    the JAX package's remat of the estimator, its device-side mels and its
-    device mesh (``gradtts_tpu/train/loop.py:104,128-134``). One device
-    (``mesh_data`` -1 or 1, ``mesh_model`` 1) and host mels (``device_mel``
-    None or False) are what the port runs."""
+    the JAX package's remat of the estimator and its device mesh
+    (``gradtts_tpu/train/loop.py:104,133-134``). One device
+    (``mesh_data`` -1 or 1, ``mesh_model`` 1) is what the port runs."""
     t = cfg.train
     for refused, what in [
             (t.remat_estimator, 'train.remat_estimator=True (remat of the '
                                 'U-Net)'),
-            (bool(t.device_mel), 'train.device_mel=True (mels on the '
-                                 'device)'),
             (t.mesh_data not in (-1, 1), f'train.mesh_data={t.mesh_data} '
                                          '(data-parallel training)'),
             (t.mesh_model != 1, f'train.mesh_model={t.mesh_model} (a model '
@@ -98,6 +136,17 @@ def check_ported(cfg: GradTTSConfig) -> None:
         if refused:
             raise ValueError(f'{what} is not ported to gradtts_tpu_torch '
                              'yet; use python -m gradtts_tpu.cli.train')
+
+
+def use_device_mel(cfg: GradTTSConfig, device) -> bool:
+    """``train.device_mel``, or where it is None, whether ``device`` is a
+    GPU and this is the only process."""
+    if cfg.train.device_mel is not None:
+        return bool(cfg.train.device_mel)
+    one_process = not (torch.distributed.is_available()
+                       and torch.distributed.is_initialized()
+                       and torch.distributed.get_world_size() > 1)
+    return torch.device(device).type == 'cuda' and one_process
 
 
 def train(cfg: GradTTSConfig, n_epochs: Optional[int] = None,
@@ -132,55 +181,39 @@ def train(cfg: GradTTSConfig, n_epochs: Optional[int] = None,
         log.info('resumed from step %d', start_step)
 
     if loader is None:
+        device_mel = use_device_mel(cfg, device)
+        log.info('input pipeline: %s mels', 'device' if device_mel
+                 else 'host')
         loader = DataLoader(dataset_from_config(cfg),
                             cfg.train.batch_size,
                             BatchCollate(cfg.data.x_buckets,
                                          cfg.data.y_buckets),
-                            shuffle=True, seed=cfg.train.seed)
-    metrics_log = MetricsLogger(log_dir)
+                            shuffle=True, seed=cfg.train.seed,
+                            device_mel=device_mel, device=device)
+    metrics_log = MetricsLogger(log_dir, METRICS)
     step = start_step
     try:
         for epoch in range(n_epochs):
-            epoch_metrics, pending = [], []
-
-            def flush():
-                if not pending:
-                    return
-                values = torch.stack([torch.stack([m[k] for k in METRICS])
-                                      for _, m in pending]).cpu().numpy()
-                for (at_step, _), row in zip(pending, values):
-                    host = dict(zip(METRICS, row.tolist()))
-                    epoch_metrics.append(host)
-                    metrics_log.scalars(host, at_step)
-                pending.clear()
-
             t0 = time.time()
             for batch in loader:
                 metrics = train_step(model, optimizer, batch_to(batch, device),
                                      cfg.out_size, cfg.train.grad_clip_norm,
                                      generator)
                 step += 1
-                pending.append((step, metrics))
-                if len(pending) >= FLUSH_EVERY:
-                    flush()
+                metrics_log.add(step, metrics)
                 if max_steps is not None and step - start_step >= max_steps:
                     break
-            flush()
-            if not epoch_metrics:
+            if metrics_log.end_epoch(epoch, time.time() - t0) is None:
                 raise ValueError(
                     'the training data gave no batch: check '
                     f'data.train_filelist_path '
                     f'({cfg.data.train_filelist_path!r}) and batch_size '
                     f'({cfg.train.batch_size}) against the dataset size')
-            means = {k: float(np.mean([m[k] for m in epoch_metrics]))
-                     for k in METRICS}
-            msg = (f'epoch {epoch}: ' + ', '.join(
-                f'{k}={v:.4f}' for k, v in means.items())
-                + f' ({time.time() - t0:.1f}s)')
-            log.info(msg)
-            metrics_log.text(msg)
             if (epoch + 1) % cfg.train.save_every == 0:
-                save_checkpoint(ckpt_dir, model, optimizer, step, generator)
+                save_checkpoint(ckpt_dir, step, {
+                    'model': model.state_dict(),
+                    'optimizer': optimizer.state_dict(),
+                    'generator': generator.get_state()})
             if max_steps is not None and step - start_step >= max_steps:
                 break
     finally:

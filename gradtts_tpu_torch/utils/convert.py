@@ -18,7 +18,8 @@ mapping below is the port's own copy of that file's ``_encoder_torch_key``
 The vocoder's bridge (gradtts_tpu/models/hifigan.py :372-420):
 ``load_hifigan_state_dict`` folds a reference generator's weight norm as
 ``_fold_weight_norm`` does, and ``hifigan_flax_to_state_dict`` is the
-inverse of ``hifigan_torch_to_flax``.
+inverse of ``hifigan_torch_to_flax``; ``discriminator_flax_to_state_dict``
+carries the multi-period and multi-scale discriminators (:243-330).
 """
 
 import os
@@ -233,6 +234,28 @@ def hifigan_flax_to_state_dict(params, cfg) -> dict:
         out[base + '.weight'] = torch.from_numpy(np.array(w, order='C'))
         out[base + '.bias'] = torch.from_numpy(
             np.asarray(node['bias'], dtype=np.float32).copy())
+    return out
+
+
+def discriminator_flax_to_state_dict(params) -> dict:
+    """The JAX package's ``MultiPeriodDiscriminator`` or
+    ``MultiScaleDiscriminator`` params (``{'params': ...}`` or the inner
+    dict) -> the ``state_dict`` of the port's module of the same name: a
+    2-D kernel (K, 1, I, O) goes to (O, I, K, 1), a (grouped) 1-D kernel
+    (K, I / groups, O) to (O, I / groups, K)."""
+    out = {}
+    for path, leaf in _flatten(params.get('params', params)).items():
+        parts = []
+        for name in path[:-1]:
+            match = _IDX.match(name)
+            parts += [match.group(1), match.group(2)] if match else [name]
+        a = np.asarray(leaf, dtype=np.float32)
+        if path[-1] == 'kernel':
+            a = a.transpose((3, 2, 0, 1) if a.ndim == 4 else (2, 1, 0))
+            parts.append('weight')
+        else:
+            parts.append(path[-1])
+        out['.'.join(parts)] = torch.from_numpy(np.array(a, order='C'))
     return out
 
 

@@ -437,3 +437,86 @@ def test_speaker_synthesis_on_gpu_matches_cpu(cuda, spk_setup):
     assert torch.equal(g_len, c_len) and torch.equal(g_attn, c_attn)
     scale = float(c_dec.abs().max())
     assert float((g_dec - c_dec).abs().max()) <= 1e-3 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('tf32', [False, True], ids=['tf32_off', 'tf32_on'])
+def test_mel_on_gpu_matches_cpu(cuda, tf32):
+    # rfft (cuFFT against pocketfft) and the float64 filterbank product,
+    # which TF32 must not reach: within 1e-4 on the log-mel whatever the
+    # flag, tail frames exactly 0, the waveform gradient within 1e-3 of
+    # its largest value
+    from gradtts_tpu_torch.data.mel import mel_from_padded, mel_spectrogram
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    rng = np.random.default_rng(11)
+    pcm = torch.tensor(rng.integers(-20000, 20000, (3, 9000)),
+                       dtype=torch.int16)
+    lengths = torch.tensor([30, 12, 27])
+    for y in (pcm, pcm.float() / 32768.0):
+        want = mel_from_padded(y, lengths)
+        got = mel_from_padded(y.to(cuda), lengths.to(cuda)).cpu()
+        assert float((got - want).abs().max()) <= 1e-4
+        assert (got[1, 12:] == 0).all()
+    wav = pcm.float() / 32768.0
+    grads = []
+    for dev in (cuda, torch.device('cpu')):
+        w = wav.to(dev).requires_grad_(True)
+        mel_spectrogram(w).abs().mean().backward()
+        grads.append(w.grad.cpu())
+    scale = float(grads[1].abs().max())
+    assert float((grads[0] - grads[1]).abs().max()) <= 1e-3 * scale
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+@pytest.mark.cuda
+def test_discriminators_on_gpu_match_cpu(cuda):
+    # MPD and MSD at full width, f32 with TF32 off: scores and feature
+    # maps within 1e-4 of each one's largest value
+    from gradtts_tpu_torch.models.hifigan import (MultiPeriodDiscriminator,
+                                                  MultiScaleDiscriminator)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.manual_seed(0)
+    y, y_hat = torch.rand(2, 2, 8000) * 1.8 - 0.9
+    for disc in (MultiPeriodDiscriminator(), MultiScaleDiscriminator()):
+        with torch.no_grad():
+            want = disc(y, y_hat)
+            got = disc.to(cuda)(y.to(cuda), y_hat.to(cuda))
+        for g_list, w_list in zip(got, want):
+            g_flat = [g for item in g_list
+                      for g in (item if isinstance(item, list) else [item])]
+            w_flat = [w for item in w_list
+                      for w in (item if isinstance(item, list) else [item])]
+            for g, w in zip(g_flat, w_flat):
+                assert float((g.cpu() - w).abs().max()) <= \
+                    1e-4 * float(w.abs().max())
+
+
+@pytest.mark.cuda
+def test_gan_step_on_gpu_matches_cpu(cuda):
+    # one GAN step of a narrow V1 generator with the full-width
+    # discriminators at segment 8192, TF32 off: in f32 the seven losses
+    # within 1e-4 relative and each gradient within 1e-3 of its largest
+    # value, the CPU taking the card's leaky-ReLU slopes (an input within
+    # rounding of 0 may take the other slope on the other device; each
+    # flipped one lies within 1e-4 of its call's largest input); in f64,
+    # with no replay, each gradient within 1e-3
+    # (chip_smoke.py phase vocoder_train_slice)
+    from chip_smoke import (_gan_step_grads, _vocoder_batch,
+                            gan_step_on_card_and_cpu, grad_errors)
+    from gradtts_tpu_torch.models.hifigan import HiFiGANConfig
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = HiFiGANConfig(upsample_initial_channel=64)
+    batch = _vocoder_batch(np.random.default_rng(12), 2)
+    cpu = torch.device('cpu')
+    g_metrics, c_metrics, f32, replay, _, _ = gan_step_on_card_and_cpu(
+        cfg, cuda, batch)
+    for k, v in c_metrics.items():
+        assert g_metrics[k] == pytest.approx(v, rel=1e-4), k
+    assert replay.worst_flip <= 1e-4
+    assert max(f32.values()) <= 1e-3
+    f64 = grad_errors(_gan_step_grads(cfg, cuda, batch,
+                                      dtype=torch.float64)[1],
+                      _gan_step_grads(cfg, cpu, batch,
+                                      dtype=torch.float64)[1])
+    assert max(f64.values()) <= 1e-3

@@ -1,7 +1,8 @@
 """Two faults of the port, repaired: the kernel build on a read-only install
 (it builds into the per-user cache, as the JAX package's native loader
 does), and the trainer's refusal of the training settings it cannot honour
-(remat, device-side mels, a device mesh)."""
+(remat, a device mesh); device-side mels, refused until the device-mel
+pipeline was ported, are now taken."""
 
 import os
 import stat
@@ -10,7 +11,7 @@ import sys
 import numpy as np
 import pytest
 
-from _torch_port import CMUDICT, TINY_SET, text_batch
+from _torch_port import CMUDICT, TINY_SET, text_batch, write_corpus
 from gradtts_tpu_torch.cli.train import main as train_main
 from gradtts_tpu_torch.config import get_config
 from gradtts_tpu_torch.ops import _build
@@ -91,8 +92,7 @@ def test_read_only_install_without_nvcc_creates_nothing(monkeypatch,
 
 # ---- the trainer's refusals --------------------------------------------------
 
-REFUSED = [('train.remat_estimator', True), ('train.device_mel', True),
-           ('train.mesh_data', 2), ('train.mesh_data', 0),
+REFUSED = [('train.remat_estimator', True), ('train.mesh_data', 2), ('train.mesh_data', 0),
            ('train.mesh_model', 2)]
 
 
@@ -147,3 +147,33 @@ def test_train_runs_with_one_device_settings_spelled_out(tmp_path):
     res = train(cfg, max_steps=1, log_dir=str(tmp_path), loader=_loader(),
                 device='cpu')
     assert res.step == 1
+
+
+# ---- device-side mels, once refused, now taken ------------------------------
+
+
+def test_train_takes_device_mels(tmp_path, caplog):
+    cfg = _tiny_cfg(**{'train.device_mel': True,
+                       'data.cmudict_path': CMUDICT,
+                       'data.train_filelist_path': write_corpus(tmp_path, 4)})
+    with caplog.at_level('INFO', logger='gradtts_tpu_torch.train'):
+        res = train(cfg, max_steps=1, log_dir=str(tmp_path / 'logs'),
+                    device='cpu')
+    assert res.step == 1
+    assert 'input pipeline: device mels' in caplog.text
+    assert (tmp_path / 'logs' / 'ckpt' / 'step_00000001.pt').exists()
+
+
+def test_train_cli_takes_device_mels(tmp_path, caplog):
+    log_dir = tmp_path / 'logs'
+    with caplog.at_level('INFO', logger='gradtts_tpu_torch.train'):
+        res = train_main([
+            '--cpu', '--max-steps', '1', '--log-dir', str(log_dir),
+            '--batch-size', '2', '--set', *TINY_SET,
+            f'data.cmudict_path={CMUDICT}',
+            f'data.train_filelist_path={write_corpus(tmp_path, 4)}',
+            'data.x_buckets=(64,)', 'data.y_buckets=(64,)',
+            'train.use_bf16_compute=False', 'train.device_mel=True'])
+    assert res.step == 1
+    assert 'input pipeline: device mels' in caplog.text
+    assert 'epoch 0:' in (log_dir / 'train.log').read_text()
