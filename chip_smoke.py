@@ -87,15 +87,40 @@ Phases, each printing one JSON line:
  13. likelihood  score_batch at B 8, Tx 128, Ty 512, 10-step Euler, bf16
               compute: hypotheses/s, launches per call, the device share;
  14. adaptive  one adaptive Dormand-Prince score_batch (B 2, Ty 256).
+ 15. checkpoint_slice  the seeded ljspeech checkpoint exported to .npz
+              (utils.io, no tensorstore on the card's machine), and
+              cli.inference -c x.npz against -c x.pt: the same mels, bit
+              for bit (cuDNN's deterministic algorithms for the two runs);
+ 16. remat    train.remat_estimator at the train cell's shape: losses and
+              every gradient with remat against without, then the step
+              both ways (peak memory, wall and device time, launches), and
+              cli.train --set train.remat_estimator=True --no-previews;
+ 17. previews  the trainer's synthesis_preview (4 items of a corpus of
+              short texts, 50 Euler steps, f32) on the GPU against the CPU
+              with the same noise;
+ 18. generate  python -m gradtts_tpu_torch.cli.generate on a synthetic
+              tedlium split (the first 20 texts of its test filelist, wavs
+              of 1.5-10 s, 192-d speaker vectors, B 8: a tail of 4) with
+              the seeded V1 vocoder, s a batch and audio-s/s; then without
+              the vocoder, two rows of its first batch against the CPU with
+              the same noise;
+ 19. inference_zero  python -m gradtts_tpu_torch.cli.inference_zero
+              --spk-emb with the vocoder (the wavs), then its mels against
+              synthesize called with the same vector, bit for bit;
+ 20. playground  python -m gradtts_tpu_torch.cli.playground: 3 utterances
+              of the train corpus, 10 Euler steps, 3 probes each.
 Each timed path (synth, dpm8, waveform, multispeaker, train,
-vocoder_train, train_spk, likelihood) sets the launch counts to 0 just
-before its main run and reads them just after (the GAN step launches no
-hand kernel). Then the total seconds, the card's name and power limit
-(nvidia-smi), the {"kernels": [...]} line, and last {"ok": true, "device":
-{...}}. Any failure exits non-zero before the last line; so does a machine
+vocoder_train, train_spk, likelihood) and each path of phases 15-20 sets
+the launch counts to 0 just before its main run and reads them just after
+(the GAN step launches no hand kernel); phases 15-20 run their CLIs in
+this process, so that their launches are counted. Then each phase's
+seconds ({"phase_seconds": {...}}), the total seconds, the card's name
+and power limit (nvidia-smi), the {"kernels": [...]} line, and last
+{"ok": true, "device": {...}}. Any failure exits non-zero before the last line; so does a machine
 without a GPU or a directory without the package.
 """
 
+import contextlib
 import json
 import math
 import os
@@ -1154,29 +1179,32 @@ def phase_train_slice(device, ckpt):
 CORPUS_ITEMS, TRAIN_STEPS = 64, 12
 
 
-def write_corpus(directory, n_items):
-    """``n_items`` wavs at 22.05 kHz (a sine plus noise), each as long as
-    its text from the ljspeech training filelist takes at ~15 characters a
-    second (1.5-10 s), and their ``path|text`` filelist."""
+def write_corpus(directory, n_items, texts=None, sr=SR,
+                 seconds=(1.5, 10.0)):
+    """``n_items`` wavs at ``sr`` (a sine plus noise), each as long as its
+    text (``texts``, or the first of the ljspeech training filelist) takes
+    at ~15 characters a second, within ``seconds``, and their
+    ``path|text`` filelist."""
     import wave
     import numpy as np
     os.makedirs(directory, exist_ok=True)
-    with open(os.path.join(REPO, 'resources', 'filelists', 'ljspeech',
-                           'train.txt'), encoding='utf-8') as f:
-        texts = [ln.rstrip('\n').split('|')[1] for _, ln in zip(
-            range(n_items), f)]
+    if texts is None:
+        with open(os.path.join(REPO, 'resources', 'filelists', 'ljspeech',
+                               'train.txt'), encoding='utf-8') as f:
+            texts = [ln.rstrip('\n').split('|')[1] for _, ln in zip(
+                range(n_items), f)]
     rng = np.random.default_rng(4)
     lines = []
-    for i, text in enumerate(texts):
-        seconds = min(max(len(text) / 15.0, 1.5), 10.0)
-        tt = np.arange(int(SR * seconds)) / SR
+    for i, text in enumerate(texts[:n_items]):
+        length = min(max(len(text) / 15.0, seconds[0]), seconds[1])
+        tt = np.arange(int(sr * length)) / sr
         wav = (0.3 * np.sin(2 * np.pi * rng.uniform(100, 400) * tt)
                + 0.05 * rng.standard_normal(tt.shape))
         path = os.path.join(directory, f'{i:03d}.wav')
         with wave.open(path, 'wb') as w:
             w.setnchannels(1)
             w.setsampwidth(2)
-            w.setframerate(SR)
+            w.setframerate(sr)
             w.writeframes((wav * 32767).astype('<i2').tobytes())
         lines.append(f'{path}|{text}')
     filelist = os.path.join(directory, 'filelist.txt')
@@ -1225,8 +1253,8 @@ def phase_train(device, card):
     filelist = write_corpus(os.path.join(WORK, 'corpus'), CORPUS_ITEMS)
     log_dir = os.path.join(WORK, 'train')
     shutil.rmtree(log_dir, ignore_errors=True)
-    common = ['--preset', 'ljspeech', '--log-dir', log_dir, '--set',
-              f'data.train_filelist_path={filelist}']
+    common = ['--preset', 'ljspeech', '--log-dir', log_dir, '--no-previews',
+              '--set', f'data.train_filelist_path={filelist}']
     proc, train_s = _run_cli('gradtts_tpu_torch.cli.train',
                              common + ['--max-steps', str(TRAIN_STEPS)])
     route = _input_pipeline(proc, 'train')
@@ -1962,7 +1990,7 @@ def phase_train_spk(device, card):
     shutil.rmtree(log_dir, ignore_errors=True)
     proc, train_s = _run_cli('gradtts_tpu_torch.cli.train', [
         '--preset', 'tedlium-spk', '--log-dir', log_dir, '--max-steps',
-        str(SPK_TRAIN_STEPS), '--set',
+        str(SPK_TRAIN_STEPS), '--no-previews', '--set',
         f'data.train_filelist_path={filelist}'])
     route = _input_pipeline(proc, 'train_spk')
     epochs = _train_log(log_dir, 'train_spk')
@@ -2426,6 +2454,571 @@ def phase_vocoder_train(device, card, ckpt):
     return counts
 
 
+# ---- checkpoints, remat, previews and the generate, inference_zero and
+# playground CLIs ------------------------------------------------------------
+
+
+def _cli_main(module, argv):
+    """``module``'s ``main(argv)`` in this process, the entry point a user
+    calls, so that its launches are counted: (its standard output,
+    seconds). The output is echoed; a parser error fails the phase."""
+    import contextlib
+    import importlib
+    import io
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            importlib.import_module(module).main(argv)
+    except SystemExit as e:
+        raise SmokeFailure(f'{module} exited {e.code}') from e
+    finally:
+        print(buf.getvalue(), end='', flush=True)
+    return buf.getvalue(), time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms for the block: two runs of the same
+    weights then compare bit for bit. cuDNN's default picks for some of
+    the U-Net's convolutions are not bit-repeatable (two 10-step
+    syntheses part by ~3e-7 of the largest mel); the hand kernels are
+    bit-repeatable either way."""
+    import torch
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = before
+
+
+def _texts_file():
+    texts = os.path.join(WORK, 'texts.txt')
+    with open(texts, 'w', encoding='utf-8') as f:
+        f.write('The quick brown fox jumps over the lazy dog.\n'
+                'Grad-TTS synthesizes a mel-spectrogram from text.\n'
+                'It ran on the GPU in 2026.\n')
+    return texts
+
+
+def _mels_equal(dir_a, dir_b, names):
+    """Each mel file of ``names`` in both directories, read back: whether
+    all are bit-equal, and the largest difference."""
+    import numpy as np
+    worst, equal = 0.0, True
+    for name in names:
+        a, b = (np.load(os.path.join(d, name)) for d in (dir_a, dir_b))
+        require(a.shape == b.shape and np.isfinite(a).all(),
+                f'{dir_a}/{name}: shape {a.shape} against {b.shape}')
+        equal = equal and bool((a == b).all())
+        worst = max(worst, float(np.abs(a - b).max()))
+    return equal, worst
+
+
+def _default_cudnn_spread(device, ckpt):
+    """The largest difference between two 10-step syntheses of the slice
+    model on the same inputs and seed with cuDNN's default algorithms:
+    the spread that ``deterministic_cudnn`` removes."""
+    import numpy as np
+    import torch
+    from gradtts_tpu_torch.config import get_config
+    from gradtts_tpu_torch.models.tts import synthesize
+    cfg = get_config('ljspeech')
+    model = _seeded_model(cfg, ckpt, device)
+    x, x_lengths = _slice_batch(cfg, np.random.default_rng(1))
+    mels = [synthesize(model, x.to(device), x_lengths.to(device), STEPS,
+                       256, temperature=1.5, generator=torch.Generator(
+                           device=device).manual_seed(0)).decoder_outputs
+            for _ in range(2)]
+    return float((mels[0] - mels[1]).abs().max())
+
+
+def phase_checkpoint_slice(device, ckpt):
+    """The seeded ljspeech checkpoint exported to .npz (the JAX package's
+    layout) with utils.io on this machine, which has no tensorstore; then
+    cli.inference -c x.npz against -c x.pt with the same seed: the same
+    mels, bit for bit. Returns the launches of the .npz run."""
+    import importlib.util
+    import torch
+    from gradtts_tpu_torch.utils.convert import (load_checkpoint,
+                                                 state_dict_to_flax_params)
+    from gradtts_tpu_torch.utils.io import save_params_npz
+
+    sd = torch.load(ckpt, weights_only=True)
+    npz = os.path.join(WORK, 'ljspeech_seeded.npz')
+    t0 = time.perf_counter()
+    save_params_npz(npz, state_dict_to_flax_params(sd))
+    export_s = time.perf_counter() - t0
+    back = load_checkpoint(npz)
+    require(set(back) == set(sd) and all(torch.equal(back[k], sd[k])
+                                         for k in sd),
+            'checkpoint_slice: the .npz does not read back as the .pt')
+    texts = _texts_file()
+    line = {'phase': 'checkpoint_slice', 'npz_mib':
+            os.path.getsize(npz) / 2 ** 20, 'export_seconds': export_s,
+            'tensorstore_installed':
+                importlib.util.find_spec('tensorstore') is not None,
+            'tensorstore_imported': 'tensorstore' in sys.modules}
+    with deterministic_cudnn():
+        for name, c in (('pt', ckpt), ('npz', npz)):
+            reset_counts()
+            _, line[f'{name}_seconds'] = _cli_main(
+                'gradtts_tpu_torch.cli.inference',
+                ['-f', texts, '-c', c, '-o',
+                 os.path.join(WORK, f'ckpt_{name}'), '-t', str(STEPS)])
+            counts = read_counts()
+    line['mels_equal'], line['mel_max_abs_diff'] = _mels_equal(
+        os.path.join(WORK, 'ckpt_npz'), os.path.join(WORK, 'ckpt_pt'),
+        [f'mel_{i}.npy' for i in range(3)])
+    line['launches'] = counts
+    line['default_cudnn_repeat_max_abs_diff'] = _default_cudnn_spread(
+        device, ckpt)
+    _check(line, [
+        (line['mels_equal'], 'checkpoint_slice: -c x.npz and -c x.pt give '
+                             'other mels'),
+        (not line['tensorstore_imported'], 'checkpoint_slice: tensorstore '
+                                           'was imported'),
+        (counts == {k: 3 * v for k, v in EXPECTED_COUNTS.items()},
+         f'checkpoint_slice: launches {counts}')])
+    return counts
+
+
+# a train step with remat: the U-Net's forward twice (K1-K3), its backward
+# once (K4, K5), MAS once
+REMAT_COUNTS = {**TRAIN_COUNTS, 'groupnorm_mish': 50, 'attention_stats': 12,
+                'attention_apply': 12}
+REMAT_LOSS_RTOL = 1e-6
+REMAT_GRAD_TOL = 1e-5     # of each gradient's largest value
+REMAT_CLI_STEPS = 3
+
+
+def _train_batch(device):
+    """The train cell's batch: 16 utterances of the synthetic corpus,
+    collated to their buckets, on ``device``; and the preset's config."""
+    from gradtts_tpu_torch.config import get_config
+    from gradtts_tpu_torch.data.dataset import (BatchCollate,
+                                                dataset_from_config)
+    from gradtts_tpu_torch.train.loop import batch_to
+    filelist = os.path.join(WORK, 'corpus', 'filelist.txt')
+    cfg = get_config('ljspeech', **{'data.train_filelist_path': filelist})
+    dataset = dataset_from_config(cfg)
+    batch = BatchCollate(cfg.data.x_buckets, cfg.data.y_buckets)(
+        [dataset[i] for i in range(TRAIN_B)])
+    return cfg, filelist, batch_to(batch, device)
+
+
+def phase_remat(device, card):
+    """train.remat_estimator at the train cell's shape (ljspeech, B 16,
+    172-frame crops, bf16 compute, f32 parameters): the losses and every
+    gradient with remat against without (the same draws), then the train
+    step both ways (peak memory, wall and device time, launches), then
+    cli.train --set train.remat_estimator=True --no-previews for a few
+    steps. Returns the launches of one remat step."""
+    import shutil
+    import numpy as np
+    import torch
+    from gradtts_tpu_torch.models.tts import (GradTTS, compute_loss,
+                                              set_compute_dtype)
+    from gradtts_tpu_torch.train.state import make_optimizer, train_step
+
+    cfg, filelist, batch = _train_batch(device)
+    torch.manual_seed(cfg.train.seed)
+    model = GradTTS.from_config(cfg).to(device).train()
+    set_compute_dtype(model, torch.bfloat16)
+    rng = np.random.default_rng(9)
+    offset = torch.from_numpy(rng.integers(0, 1 << 30, TRAIN_B)).to(device)
+    t = torch.from_numpy(rng.uniform(0, 1, TRAIN_B).astype(np.float32))
+    z = torch.from_numpy(rng.standard_normal(
+        (TRAIN_B, cfg.out_size, cfg.data.n_feats)).astype(np.float32))
+    offset = offset % (batch['y_lengths'] - cfg.out_size).clamp_min(1)
+
+    def loss_and_grads(remat):
+        model.zero_grad(set_to_none=True)
+        res = compute_loss(model, batch['x'], batch['x_lengths'], batch['y'],
+                           batch['y_lengths'], out_size=cfg.out_size,
+                           offset=offset, t=t.to(device), z=z.to(device),
+                           generator=torch.Generator(
+                               device=device).manual_seed(0), remat=remat)
+        (res.dur_loss + res.prior_loss + res.diff_loss).backward()
+        return ([float(v.detach()) for v in res[:3]],
+                {n: p.grad.detach().clone()
+                 for n, p in model.named_parameters()})
+
+    plain_losses, plain = loss_and_grads(False)
+    remat_losses, remat = loss_and_grads(True)
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(remat_losses,
+                                                       plain_losses))
+    grad_err = {n: float((remat[n] - g).abs().max()
+                         / g.abs().max().clamp_min(1e-30))
+                for n, g in plain.items()}
+    line = {'phase': 'remat', 'card': card, 'batch': TRAIN_B,
+            'crop': cfg.out_size, 'y_shape': list(batch['y'].shape),
+            'dtype': 'bfloat16 compute, float32 parameters',
+            'losses': plain_losses, 'remat_losses': remat_losses,
+            'loss_max_rel_err': loss_err, 'loss_rtol': REMAT_LOSS_RTOL,
+            'losses_exact': remat_losses == plain_losses,
+            'grads': len(grad_err), 'grads_exact': sum(
+                bool(torch.equal(remat[n], plain[n])) for n in plain),
+            'grad_max_err_of_largest': max(grad_err.values()),
+            'grad_worst': max(grad_err, key=grad_err.get),
+            'grad_tol': REMAT_GRAD_TOL}
+    checks = [(loss_err <= REMAT_LOSS_RTOL,
+               f'remat: losses {remat_losses} against {plain_losses}'),
+              (line['grad_max_err_of_largest'] <= REMAT_GRAD_TOL,
+               f'remat: grad {line["grad_worst"]} off by '
+               f'{line["grad_max_err_of_largest"]} of its largest value')]
+
+    optimizer = make_optimizer(model.parameters(), cfg.train.learning_rate)
+    gen = torch.Generator(device=device).manual_seed(0)
+    counts = {}
+    for way, flag in (('plain', False), ('remat', True)):
+        def run(flag=flag):
+            metrics = train_step(model, optimizer, batch, cfg.out_size,
+                                 cfg.train.grad_clip_norm, gen, remat=flag)
+            torch.cuda.synchronize()
+            return metrics
+
+        for _ in range(3):                          # warm-up
+            run()
+        reset_counts()
+        metrics = run()                             # the main path's run
+        counts[way] = read_counts()
+        torch.cuda.reset_peak_memory_stats(device)
+        times = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            run()
+            times.append(time.perf_counter() - t0)
+        per_step = statistics.median(times)
+        share = _device_share(run, per_step * 1e3, f'remat {way}')
+        line[way] = {
+            'seconds_per_step': per_step, 'seconds_all': times,
+            'peak_memory_gib': torch.cuda.max_memory_allocated(device)
+            / 2 ** 30, 'device_busy_ms': share['device_busy_ms'],
+            'device_idle_share': share['device_idle_share'],
+            'kernel_ms': share['kernel_ms'], 'launches_per_step': counts[way],
+            'metrics': {k: float(v) for k, v in metrics.items()}}
+        checks.append((all(math.isfinite(v) for v in
+                           line[way]['metrics'].values()),
+                       f'remat: {way} step metrics not finite'))
+    checks += [(counts['plain'] == TRAIN_COUNTS,
+                f'remat: plain launches per step {counts["plain"]}'),
+               (counts['remat'] == REMAT_COUNTS,
+                f'remat: launches per step {counts["remat"]}, expected '
+                f'{REMAT_COUNTS}')]
+
+    log_dir = os.path.join(WORK, 'train_remat')
+    shutil.rmtree(log_dir, ignore_errors=True)
+    reset_counts()
+    _, line['cli_seconds'] = _cli_main('gradtts_tpu_torch.cli.train', [
+        '--preset', 'ljspeech', '--log-dir', log_dir, '--max-steps',
+        str(REMAT_CLI_STEPS), '--no-previews', '--set',
+        f'data.train_filelist_path={filelist}',
+        'train.remat_estimator=True'])
+    cli_counts = read_counts()
+    line['cli_steps'], line['cli_launches'] = REMAT_CLI_STEPS, cli_counts
+    line['cli_epochs'] = _train_log(log_dir, 'remat cli')
+    checks.append((cli_counts == {k: REMAT_CLI_STEPS * v for k, v in
+                                  REMAT_COUNTS.items()},
+                   f'remat: cli.train launches {cli_counts}'))
+    _check(line, checks)
+    return counts['remat']
+
+
+# 50 Euler steps over a budget of 8 frames a token (train/loop.py
+# preview_budget) run at the CPU's pace too: short texts keep it to
+# seconds an item
+PREVIEW_TEXTS = ('Hello world.', 'Good morning to you.', 'It is late.',
+                 'The port runs here.', 'A short one.', 'Read it back.')
+PREVIEW_TOL = SLICE_TOL   # of max |mel|: GPU vs CPU, f32, TF32 off
+
+
+def phase_previews(device, ckpt):
+    """train.loop.synthesis_preview at ljspeech full width (the seeded
+    checkpoint, f32): the 4 items sample_test_batch picks of a synthetic
+    corpus of short texts, 50 Euler steps, on the GPU against the CPU with
+    the same noise. Returns the GPU run's launches."""
+    import numpy as np
+    import torch
+    from gradtts_tpu_torch.config import get_config
+    from gradtts_tpu_torch.data.dataset import dataset_from_config
+    from gradtts_tpu_torch.train.loop import preview_budget, synthesis_preview
+
+    filelist = write_corpus(os.path.join(WORK, 'preview_corpus'),
+                            len(PREVIEW_TEXTS), texts=PREVIEW_TEXTS)
+    cfg = get_config('ljspeech', **{'data.train_filelist_path': filelist})
+    items = dataset_from_config(cfg).sample_test_batch(cfg.train.test_size)
+    rng = np.random.default_rng(10)
+    noise = [torch.from_numpy(rng.standard_normal(
+        (1, preview_budget(len(it['x'])), cfg.data.n_feats)).astype(
+            np.float32)) for it in items]
+    runs = []
+    for dev in (device, torch.device('cpu')):
+        model = _seeded_model(cfg, ckpt, dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        out = synthesis_preview(cfg, model, items, 50, noise=noise)
+        runs.append((out, read_counts(), time.perf_counter() - t0))
+    (gpu, counts, gpu_s), (cpu, cpu_counts, cpu_s) = runs
+    scale = max(float(np.abs(d).max()) for _, d, _ in cpu)
+    err = max(float(np.abs(g[1] - c[1]).max()) for g, c in zip(gpu, cpu))
+    line = {'phase': 'previews', 'items': len(items), 'steps': 50,
+            'tokens': [len(it['x']) for it in items],
+            'budgets': [n.shape[1] for n in noise],
+            'frames': [int(g[1].shape[0]) for g in gpu],
+            'attn_equal': all(g[2].shape == c[2].shape
+                              and bool((g[2] == c[2]).all())
+                              for g, c in zip(gpu, cpu)),
+            'encoder_max_abs_err': max(
+                float(np.abs(g[0] - c[0]).max()) for g, c in zip(gpu, cpu)),
+            'decoder_max_abs_err': err, 'decoder_max_abs': scale,
+            'tol': PREVIEW_TOL * scale, 'gpu_s': gpu_s, 'cpu_s': cpu_s,
+            'gpu_launches': counts}
+    steps = 50 * len(items)
+    _check(line, [
+        (line['attn_equal'], 'previews: the alignments differ'),
+        (all(np.isfinite(g[1]).all() for g in gpu) and scale > 0,
+         'previews: mel not finite'),
+        (err <= PREVIEW_TOL * scale,
+         f'previews: decoder max abs err {err} over {PREVIEW_TOL * scale}'),
+        (counts == {k: v * steps // STEPS for k, v in
+                    EXPECTED_COUNTS.items()},
+         f'previews: launches {counts}'),
+        (not any(cpu_counts.values()), 'previews: the CPU run launched')])
+    return counts
+
+
+GEN_ITEMS, GEN_BATCH = 20, 8       # batches of 8, 8 and a tail of 4
+GEN_CPU_ROWS = 2                   # rows of batch 0 synthesized again on the CPU
+
+
+def write_vector_corpus(directory, n_items, sr=16000):
+    """The first ``n_items`` texts of the tedlium test filelist, each with a
+    16 kHz wav (a sine plus noise) as long as ``write_corpus`` makes it
+    (~15 characters a second, 1.5-10 s), their ``path|text`` filelist, and
+    a [n_items, 192] matrix of speaker vectors (.npy). Returns (filelist,
+    vectors path)."""
+    import numpy as np
+    with open(os.path.join(REPO, 'resources', 'filelists', 'tedlium',
+                           'test.txt'), encoding='utf-8') as f:
+        texts = [ln.rstrip('\n').split('|')[1] for _, ln in zip(
+            range(n_items), f)]
+    filelist = write_corpus(directory, n_items, texts=texts, sr=sr)
+    vectors = os.path.join(directory, 'spk.npy')
+    np.save(vectors, np.random.default_rng(11).standard_normal(
+        (n_items, 192)).astype(np.float32))
+    return filelist, vectors
+
+
+def phase_generate(device, card, vocoder_ckpt):
+    """python -m gradtts_tpu_torch.cli.generate on a synthetic tedlium
+    test split (the first 20 texts of its test filelist, 192-d speaker
+    vectors, 16 kHz wavs of 1.5-10 s) with the seeded tedlium model at
+    --batch-size 8 and the seeded V1 vocoder: a wav an utterance, seconds a
+    batch and audio-s/s; then the same without the vocoder, and the first
+    GEN_CPU_ROWS rows of its first batch against the CPU with the same
+    noise (a row's synthesis depends on no other row of its batch). Returns
+    the launches of the vocoder run."""
+    import numpy as np
+    import torch
+    from scipy.io import wavfile
+    from gradtts_tpu_torch.cli.generate import frame_budget, pad_batch
+    from gradtts_tpu_torch.config import get_config
+    from gradtts_tpu_torch.data.dataset import (BatchCollate, DataLoader,
+                                                dataset_from_config)
+    from gradtts_tpu_torch.models.tts import GradTTS, synthesize
+
+    filelist, vectors = write_vector_corpus(
+        os.path.join(WORK, 'gen_corpus'), GEN_ITEMS)
+    sets = [f'data.test_filelist_path={filelist}',
+            f'data.test_spk_path={vectors}']
+    cfg = get_config('tedlium', **dict(s.split('=') for s in sets))
+    ckpt = os.path.join(WORK, 'tedlium_seeded.pt')
+    torch.save(seeded_state_dict(GradTTS.from_config(cfg), seed=12), ckpt)
+    common = ['-c', ckpt, '--batch-size', str(GEN_BATCH), '-t', str(STEPS),
+              '--set', *sets]
+    wav_dir, mel_dir = (os.path.join(WORK, d) for d in ('gen_wav',
+                                                        'gen_mel'))
+    reset_counts()
+    out, wav_s = _cli_main('gradtts_tpu_torch.cli.generate',
+                           ['-o', wav_dir, '--vocoder', vocoder_ckpt, *common])
+    counts = read_counts()
+    batches = [dict(zip(('n', 'audio_s', 'seconds', 'audio_s_per_s'),
+                        map(float, m))) for m in re.findall(
+        r'batch \d+: (\d+) utterances, ([\d.]+) s of audio in ([\d.]+) s '
+        r'\(([\d.]+) audio-s/s\)', out)]
+    wavs = {b: sorted(os.listdir(os.path.join(wav_dir, b)))
+            for b in sorted(os.listdir(wav_dir))}
+    samples = []
+    for b, names in wavs.items():
+        for name in names:
+            sr, wav = wavfile.read(os.path.join(wav_dir, b, name))
+            require(sr == 16000 and wav.dtype == np.int16 and wav.size
+                    and wav.size % HOP == 0, f'generate: {b}/{name}')
+            samples.append(int(wav.size))
+    _cli_main('gradtts_tpu_torch.cli.generate', ['-o', mel_dir, *common])
+
+    # the first batch again, on the CPU, with the noise the CLI drew
+    loader = DataLoader(dataset_from_config(cfg, 'test'), GEN_BATCH,
+                        BatchCollate(cfg.data.x_buckets, cfg.data.y_buckets),
+                        shuffle=True, seed=0, drop_last=False)
+    batch, n_real = pad_batch(next(iter(loader)), GEN_BATCH)
+    budget = frame_budget(batch)
+    noise = torch.randn((GEN_BATCH, budget, cfg.data.n_feats),
+                        generator=torch.Generator(device=device).manual_seed(
+                            0), device=device).cpu()
+    model = _seeded_model(cfg, ckpt, torch.device('cpu'))
+    rows = slice(0, GEN_CPU_ROWS)
+    t0 = time.perf_counter()
+    res = synthesize(model, torch.from_numpy(batch['x'][rows]).long(),
+                     torch.from_numpy(batch['x_lengths'][rows]).long(),
+                     STEPS, budget, temperature=1.5, noise=noise[rows],
+                     spk=torch.from_numpy(batch['spk'][rows]))
+    cpu_s = time.perf_counter() - t0
+    scale = float(res.decoder_outputs.abs().max())
+    err, lengths_equal = 0.0, True
+    for j in range(min(GEN_CPU_ROWS, n_real)):
+        n = int(res.y_lengths[j])
+        got = np.load(os.path.join(mel_dir, '0', f'{j}.npy'))
+        lengths_equal = lengths_equal and got.shape[0] == n
+        if got.shape[0] == n:
+            err = max(err, float(np.abs(
+                got - res.decoder_outputs[j, :n].numpy()).max()))
+    line = {'phase': 'generate', 'card': card, 'preset': 'tedlium',
+            'utterances': GEN_ITEMS, 'batch_size': GEN_BATCH,
+            'steps': STEPS, 'dtype': 'float32', 'budget_batch0': budget,
+            'frames_batch0': [int(n) for n in res.y_lengths],
+            'cpu_rows': GEN_CPU_ROWS,
+            'wavs_per_batch': {b: len(n) for b, n in wavs.items()},
+            'batches': batches, 'seconds_wav_run': wav_s,
+            'audio_s': sum(samples) / 16000,
+            'audio_s_per_s': sum(samples) / 16000 / wav_s,
+            'batch0_lengths_equal': lengths_equal,
+            'batch0_max_abs_err': err, 'batch0_max_abs': scale,
+            'tol': SLICE_TOL * scale, 'cpu_s': cpu_s, 'launches': counts}
+    three = {k: 3 * v for k, v in EXPECTED_COUNTS.items()}
+    _check(line, [
+        (list(line['wavs_per_batch'].values()) == [8, 8, 4],
+         f'generate: wavs per batch {line["wavs_per_batch"]}'),
+        (len(batches) == 3, f'generate: {len(batches)} batch lines'),
+        (lengths_equal and scale > 0, 'generate: frames differ from the '
+                                      'CPU'),
+        (err <= SLICE_TOL * scale,
+         f'generate: batch 0 max abs err {err} over {SLICE_TOL * scale}'),
+        (counts == three, f'generate: launches {counts}')])
+    return counts
+
+
+def _zero_reference(cfg, ckpt, device, texts, vec):
+    """The mel of each text of ``texts`` as cli.inference_zero computes it,
+    by ``synthesize`` called here: the same vector, inputs
+    (``cli.inference.text_inputs``), temperature and generator (seeded 0,
+    drawn text by text)."""
+    import torch
+    from gradtts_tpu_torch.cli.inference import text_inputs
+    from gradtts_tpu_torch.models.tts import synthesize
+    from gradtts_tpu_torch.text import CMUDict
+    model = _seeded_model(cfg, ckpt, device)
+    cmu = CMUDict(cfg.data.cmudict_path)
+    gen = torch.Generator(device=device).manual_seed(0)
+    spk = torch.from_numpy(vec[None]).to(device)
+    mels = []
+    with open(texts, encoding='utf-8') as f:
+        for text in (ln.strip() for ln in f if ln.strip()):
+            x, n_ids, budget = text_inputs(text, cmu, cfg)
+            res = synthesize(model, x.to(device),
+                             torch.tensor([n_ids], device=device), STEPS,
+                             budget, temperature=1.5, generator=gen, spk=spk)
+            mels.append(res.decoder_outputs[0, :int(res.y_lengths[0])]
+                        .cpu().numpy())
+    return mels
+
+
+def phase_inference_zero(device, vocoder_ckpt):
+    """python -m gradtts_tpu_torch.cli.inference_zero --spk-emb on the
+    seeded tedlium model (phase generate's): the three texts with the
+    vocoder (the wavs), then without it, each mel against synthesize called
+    here with the same vector and generator. Returns the launches of the
+    vocoder run."""
+    import numpy as np
+    from gradtts_tpu_torch.config import get_config
+
+    cfg = get_config('tedlium')
+    ckpt = os.path.join(WORK, 'tedlium_seeded.pt')
+    texts = _texts_file()
+    vec = np.random.default_rng(13).standard_normal(192).astype(np.float32)
+    emb = os.path.join(WORK, 'spk_emb.npy')
+    np.save(emb, vec)
+    common = ['-f', texts, '-c', ckpt, '--spk-emb', emb, '-t', str(STEPS)]
+    wav_dir, mel_dir = (os.path.join(WORK, d) for d in ('zero_wav',
+                                                        'zero_mel'))
+    reset_counts()
+    out, wav_s = _cli_main('gradtts_tpu_torch.cli.inference_zero',
+                           ['-o', wav_dir, '--vocoder', vocoder_ckpt,
+                            *common])
+    counts = read_counts()
+    with deterministic_cudnn():
+        _cli_main('gradtts_tpu_torch.cli.inference_zero', ['-o', mel_dir,
+                                                           *common])
+        reference = _zero_reference(cfg, ckpt, device, texts, vec)
+    exact, err, scale = True, 0.0, 0.0
+    for i, want in enumerate(reference):
+        require(os.path.getsize(os.path.join(wav_dir, f'sample_{i}.wav'))
+                > 44, f'inference_zero: sample_{i}.wav empty')
+        got = np.load(os.path.join(mel_dir, f'mel_{i}.npy'))
+        require(got.shape == want.shape, f'inference_zero: mel_{i} shape')
+        exact = exact and bool((got == want).all())
+        err = max(err, float(np.abs(got - want).max()))
+        scale = max(scale, float(np.abs(want).max()))
+    rtf = [float(r) for r in re.findall(r'RTF: ([\d.e-]+)', out)]
+    line = {'phase': 'inference_zero', 'texts': len(reference),
+            'spk_emb_dim': 192, 'rtf': rtf, 'seconds_wav_run': wav_s,
+            'mels_exact': exact, 'mel_max_abs_err': err,
+            'mel_max_abs': scale, 'launches': counts}
+    _check(line, [
+        (len(rtf) == len(reference), 'inference_zero: no RTF line a text'),
+        (exact, f'inference_zero: mels off synthesize by {err}'),
+        (counts == {k: len(reference) * v
+                    for k, v in EXPECTED_COUNTS.items()},
+         f'inference_zero: launches {counts}')])
+    return counts
+
+
+PLAY_UTTERANCES, PLAY_EULER, PLAY_REPEATS = 3, 10, 3
+
+
+def phase_playground(ckpt):
+    """python -m gradtts_tpu_torch.cli.playground on the seeded ljspeech
+    checkpoint: 3 utterances of the train corpus, 10 Euler steps, 3
+    probes each: finite scores and bits per dimension, K6 and K7 in every
+    drift evaluation. Returns its launches."""
+    filelist = os.path.join(WORK, 'corpus', 'filelist.txt')
+    reset_counts()
+    out, seconds = _cli_main('gradtts_tpu_torch.cli.playground', [
+        '--checkpoint', ckpt, '--filelist', filelist, '--n-utterances',
+        str(PLAY_UTTERANCES), '--n-euler', str(PLAY_EULER), '--repeats',
+        str(PLAY_REPEATS)])
+    counts = read_counts()
+    rows = [tuple(map(float, m)) for m in re.findall(
+        r'utt \d+: score=(\S+) \(std (\S+) over \d+ probes\), (\S+) bpd',
+        out)]
+    calls = PLAY_UTTERANCES * PLAY_REPEATS
+    line = {'phase': 'playground', 'utterances': PLAY_UTTERANCES,
+            'euler_steps': PLAY_EULER, 'repeats': PLAY_REPEATS,
+            'scores': [r[0] for r in rows], 'stds': [r[1] for r in rows],
+            'bpd': [r[2] for r in rows], 'seconds': seconds,
+            'seconds_per_score': seconds / calls, 'launches': counts}
+    _check(line, [
+        (len(rows) == PLAY_UTTERANCES and all(
+            math.isfinite(v) for r in rows for v in r),
+         f'playground: lines {rows}'),
+        (counts == {k: calls * v for k, v in
+                    likelihood_counts(PLAY_EULER).items()},
+         f'playground: launches {counts}')])
+    return counts
+
+
 HAND_KERNELS = ('gn_stats_kernel', 'gn_apply_kernel', 'la_stats_kernel',
                 'la_apply_kernel', 'la_bwd1_kernel', 'la_bwd2_kernel',
                 'la_bwd2_dx_kernel', 'la_bwd2_dw_kernel',
@@ -2528,29 +3121,50 @@ def main():
               file=sys.stderr)
         return 1
     card = smi.stdout.strip().splitlines()[0]
+    seconds = {}
+
+    def timed(fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[fn.__name__[len('phase_'):]] = time.perf_counter() - t0
+        return out
+
     try:
-        phase_build()
-        stats = phase_kernels(device)
-        ckpt = phase_slice(device)
-        phase_samplers_slice(device, ckpt)
-        spk_ckpt = phase_speakers_slice(device)
-        vocoder_ckpt = phase_vocoder_slice(device)
-        phase_mel_slice(device, card)
-        phase_vocoder_train_slice(device)
-        phase_cli(ckpt, spk_ckpt, vocoder_ckpt)
-        counts = {'synth': phase_synth(device, card)}
-        counts['dpm8'] = phase_dpm8(device, card)
-        counts['waveform'] = phase_waveform(device, card)
-        counts['multispeaker'] = phase_multispeaker(device, card)
-        phase_train_slice(device, ckpt)
-        counts['train'], train_rate = phase_train(device, card)
-        phase_device_mel(device, card, train_rate)
-        counts['vocoder_train'] = phase_vocoder_train(device, card, ckpt)
-        counts['train_spk'], _ = phase_train_spk(device, card)
-        phase_likelihood_slice(device, ckpt)
-        phase_nbest_cli(ckpt, spk_ckpt)
-        counts['likelihood'] = phase_likelihood(device, card, ckpt)
-        phase_adaptive(device, ckpt)
+        timed(phase_build)
+        stats = timed(phase_kernels, device)
+        ckpt = timed(phase_slice, device)
+        timed(phase_samplers_slice, device, ckpt)
+        spk_ckpt = timed(phase_speakers_slice, device)
+        vocoder_ckpt = timed(phase_vocoder_slice, device)
+        timed(phase_mel_slice, device, card)
+        timed(phase_vocoder_train_slice, device)
+        timed(phase_cli, ckpt, spk_ckpt, vocoder_ckpt)
+        counts = {'synth': timed(phase_synth, device, card)}
+        counts['dpm8'] = timed(phase_dpm8, device, card)
+        counts['waveform'] = timed(phase_waveform, device, card)
+        counts['multispeaker'] = timed(phase_multispeaker, device, card)
+        timed(phase_train_slice, device, ckpt)
+        counts['train'], train_rate = timed(phase_train, device, card)
+        timed(phase_device_mel, device, card, train_rate)
+        counts['vocoder_train'] = timed(phase_vocoder_train, device, card,
+                                        ckpt)
+        counts['train_spk'], _ = timed(phase_train_spk, device, card)
+        timed(phase_likelihood_slice, device, ckpt)
+        timed(phase_nbest_cli, ckpt, spk_ckpt)
+        counts['likelihood'] = timed(phase_likelihood, device, card, ckpt)
+        timed(phase_adaptive, device, ckpt)
+        # the paths of the checkpoints, remat, previews and three CLIs,
+        # each counted from 0 just before it (their launches are read
+        # into launches_per_path, the kernels' times on the paths above)
+        counts['checkpoint_cli'] = timed(phase_checkpoint_slice, device,
+                                         ckpt)
+        counts['remat'] = timed(phase_remat, device, card)
+        counts['previews'] = timed(phase_previews, device, ckpt)
+        counts['generate'] = timed(phase_generate, device, card,
+                                   vocoder_ckpt)
+        counts['inference_zero'] = timed(phase_inference_zero, device,
+                                         vocoder_ckpt)
+        counts['playground'] = timed(phase_playground, ckpt)
     except SmokeFailure as e:
         print(f'chip_smoke: FAILED: {e}', file=sys.stderr, flush=True)
         return 1
@@ -2575,6 +3189,7 @@ def main():
             'launches_per_path': {p: c[name] for p, c in counts.items()},
             'per': PER[path] if name != 'maximum_path'
             else 'one call at [16, 384, 1024], f32'})
+    emit({'phase_seconds': seconds})
     print(f'# total {time.perf_counter() - t_start:.1f} s', flush=True)
     print(card)
     emit({'kernels': kernels})

@@ -10,10 +10,14 @@ n_feats]) for the i-th text and, with ``--vocoder``, ``sample_{i}.wav``
 
 ``-s`` picks a speaker id of a multi-speaker preset (required there). A
 reference ``.pt`` checkpoint of such a preset whose encoder reads the
-speaker (the upstream wiring) is recognized and built so. ``--vocoder``
-takes a reference HiFi-GAN ``.pt`` (its ``generator`` key) and
-``--vocoder-config`` its JSON; without one the V1 config. Not ported: a
-vocoder checkpoint directory of the JAX package (orbax).
+speaker (the upstream wiring) is recognized and built so. ``-c`` takes a
+reference ``.pt``, a trainer's ``ckpt/step_*.pt``, a ``.npz`` param tree or
+an orbax checkpoint directory of the JAX package's acoustic trainer.
+``--vocoder`` takes a reference HiFi-GAN ``.pt`` (its ``generator`` key) or
+an orbax directory of the JAX package's vocoder trainer (its generator's
+params), and ``--vocoder-config`` its JSON; without one the V1 config. An
+orbax directory is read with tensorstore (``utils.io
+.read_orbax_checkpoint``), a host-side package.
 
 Usage:
   python -m gradtts_tpu_torch.cli.inference -f texts.txt -c ckpt.pt -o out \
@@ -40,7 +44,7 @@ from gradtts_tpu_torch.text import CMUDict, intersperse_blank, text_to_sequence
 from gradtts_tpu_torch.text.symbols import symbols
 from gradtts_tpu_torch.utils.convert import (detect_encoder_speaker,
                                              load_checkpoint,
-                                             load_hifigan_state_dict)
+                                             load_vocoder_checkpoint)
 
 def parse_overrides(pairs) -> dict:
     """``key=value`` strings -> {key: value}, values read as Python
@@ -65,13 +69,46 @@ def resolve_device(cpu: bool) -> torch.device:
     return torch.device('cuda')
 
 
+def text_inputs(text: str, cmu: CMUDict, cfg):
+    """A text as the synthesis CLIs feed it: (token ids [1, bucket] int64,
+    zero-padded to the preset's text bucket; their count; the frame
+    budget, the mel bucket of 10 frames a token)."""
+    ids = intersperse_blank(text_to_sequence(text, dictionary=cmu),
+                            len(symbols))
+    x = torch.zeros((1, bucket_length(len(ids), cfg.data.x_buckets)),
+                    dtype=torch.long)
+    x[0, :len(ids)] = torch.tensor(ids)
+    y_budget = fix_len_compatibility(
+        bucket_length(10 * len(ids), cfg.data.y_buckets))
+    return x, len(ids), y_budget
+
+
+def load_vocoder(path, config_path, device) -> Generator:
+    """The HiFi-GAN generator of ``path`` (:func:`utils.convert
+    .load_vocoder_checkpoint`) with the config of the JSON at
+    ``config_path`` (V1 where None), on ``device``, in eval mode."""
+    vcfg = HiFiGANConfig.from_json(config_path) if config_path \
+        else HiFiGANConfig()
+    vocoder = Generator(vcfg)
+    vocoder.load_state_dict(load_vocoder_checkpoint(path, vcfg), strict=True)
+    return vocoder.to(device).eval()
+
+
+def write_wav(vocoder, mel, path: str, sample_rate: int) -> None:
+    """The vocoder's waveform of ``mel`` [frames, n_feats] written to
+    ``path`` as int16 after a clip to [-1, 1]."""
+    with torch.no_grad():
+        wav = vocoder(mel[None])[0].clamp(-1, 1).cpu().numpy()
+    wavfile.write(path, sample_rate, (wav * 32767).astype(np.int16))
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument('-f', '--file', required=True,
                         help='path to a file with texts to synthesize')
     parser.add_argument('-c', '--checkpoint', required=True,
                         help='Grad-TTS checkpoint (reference .pt, a trainer '
-                             'ckpt/step_*.pt, or .npz)')
+                             'ckpt/step_*.pt, .npz, or an orbax directory)')
     parser.add_argument('-t', '--timesteps', type=int, default=10)
     parser.add_argument('-s', '--speaker_id', type=int, default=None)
     parser.add_argument('-o', '--output', required=True)
@@ -82,7 +119,8 @@ def main(argv=None):
     parser.add_argument('--sampler', default='euler', choices=('euler', 'dpm'))
     parser.add_argument('--vocoder', default=None,
                         help='HiFi-GAN checkpoint (reference .pt with a '
-                             '"generator" key); mels only if unset')
+                             '"generator" key, or an orbax directory of the '
+                             'vocoder trainer); mels only if unset')
     parser.add_argument('--vocoder-config', default=None,
                         help='HiFi-GAN config JSON (default: V1)')
     parser.add_argument('--cpu', action='store_true',
@@ -95,9 +133,6 @@ def main(argv=None):
     parser.add_argument('--set', nargs='*', default=[],
                         help='dotted config overrides (must match training)')
     args = parser.parse_args(argv)
-    if args.vocoder and os.path.isdir(args.vocoder):
-        parser.error('a vocoder checkpoint directory (orbax) is not ported '
-                     'to gradtts_tpu_torch yet; pass a reference .pt')
     cfg = get_config(args.preset, **parse_overrides(args.set))
     if args.speaker_id is not None and cfg.n_spks <= 1:
         parser.error(f'-s: preset {cfg.name!r} is not multispeaker')
@@ -125,13 +160,7 @@ def main(argv=None):
     vocoder = None
     if args.vocoder:
         print('Initializing HiFi-GAN...')
-        vcfg = HiFiGANConfig.from_json(args.vocoder_config) \
-            if args.vocoder_config else HiFiGANConfig()
-        vocoder = Generator(vcfg)
-        sd = torch.load(args.vocoder, map_location='cpu', weights_only=True)
-        vocoder.load_state_dict(load_hifigan_state_dict(sd['generator'],
-                                                        vcfg), strict=True)
-        vocoder = vocoder.to(device).eval()
+        vocoder = load_vocoder(args.vocoder, args.vocoder_config, device)
         vocoder.compute_dtype = dtype
 
     with open(args.file, encoding='utf-8') as f:
@@ -145,16 +174,10 @@ def main(argv=None):
         spk = torch.tensor([args.speaker_id], device=device)
 
     for i, text in enumerate(texts):
-        ids = intersperse_blank(text_to_sequence(text, dictionary=cmu),
-                                len(symbols))
-        x = torch.zeros((1, bucket_length(len(ids), cfg.data.x_buckets)),
-                        dtype=torch.long)
-        x[0, :len(ids)] = torch.tensor(ids)
-        y_budget = fix_len_compatibility(
-            bucket_length(10 * len(ids), cfg.data.y_buckets))
+        x, n_ids, y_budget = text_inputs(text, cmu, cfg)
         t0 = time.perf_counter()
         res = synthesize(model, x.to(device),
-                         torch.tensor([len(ids)], device=device),
+                         torch.tensor([n_ids], device=device),
                          n_timesteps=args.timesteps, y_max_length=y_budget,
                          temperature=args.temperature,
                          length_scale=args.length_scale, generator=generator,
@@ -166,10 +189,8 @@ def main(argv=None):
               f'{dt * sr / (frames * hop)}')
         np.save(os.path.join(args.output, f'mel_{i}.npy'), mel.cpu().numpy())
         if vocoder is not None:
-            with torch.no_grad():
-                wav = vocoder(mel[None])[0].clamp(-1, 1).cpu().numpy()
-            wavfile.write(os.path.join(args.output, f'sample_{i}.wav'), sr,
-                          (wav * 32767).astype(np.int16))
+            write_wav(vocoder, mel, os.path.join(args.output,
+                                                 f'sample_{i}.wav'), sr)
     print(f'Done. Check out the `{args.output}` folder for samples.')
 
 

@@ -5,13 +5,17 @@ ones). Trains the preset's model on its filelist (``wav|text`` lines;
 ``wav|text|speaker_id`` for a preset with a speaker table; a speaker-vector
 matrix in ``data.train_spk_path`` for ``n_spks == -1``) and writes
 ``train.log``, TensorBoard scalars and ``ckpt/step_*.pt`` under the log
-directory; a rerun resumes from the latest checkpoint. Runs on ``cuda``
-unless ``--cpu`` is given, and fails when no GPU is present without it.
+directory; a rerun resumes from the latest checkpoint. The epoch-end
+synthesis previews (PNGs and TensorBoard images, ``train.loop``) are on,
+as in the JAX CLI; they need matplotlib, and ``--no-previews`` turns them
+off on a machine without it (the JAX trainer's
+``synthesis_every_epoch=False``). Runs on ``cuda`` unless ``--cpu`` is
+given, and fails when no GPU is present without it.
 
 Usage:
   python -m gradtts_tpu_torch.cli.train --preset ljspeech [--log-dir DIR]
-      [--epochs N] [--max-steps N] [--batch-size B] [--no-resume] [--cpu]
-      [--set key=value ...]
+      [--epochs N] [--max-steps N] [--batch-size B] [--no-resume]
+      [--no-previews] [--cpu] [--set key=value ...]
 """
 
 import argparse
@@ -30,6 +34,9 @@ def main(argv=None):
     parser.add_argument('--max-steps', type=int, default=None)
     parser.add_argument('--batch-size', type=int, default=None)
     parser.add_argument('--no-resume', action='store_true')
+    parser.add_argument('--no-previews', action='store_true',
+                        help='write no synthesis previews (needs no '
+                             'matplotlib)')
     parser.add_argument('--cpu', action='store_true',
                         help='run on the CPU instead of the GPU')
     parser.add_argument('--set', nargs='*', default=[],
@@ -45,7 +52,7 @@ def main(argv=None):
     cfg = get_config(args.preset, **overrides)
     return train(cfg, n_epochs=args.epochs, max_steps=args.max_steps,
                  log_dir=args.log_dir, resume=not args.no_resume,
-                 device=device)
+                 device=device, synthesis_every_epoch=not args.no_previews)
 
 
 if __name__ == '__main__':

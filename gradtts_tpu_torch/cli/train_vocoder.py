@@ -14,7 +14,7 @@ Usage:
   python -m gradtts_tpu_torch.cli.train_vocoder --input-wavs-dir wavs
       --input-training-file train.txt --log-dir logs/hifigan
       [--config hifigan-config.json] [--fine-tuning --base-mels-path mels/]
-      [--init-generator hifigan.pt] [--batch-size 16] [--epochs 100]
+      [--init-generator hifigan.pt|DIR] [--batch-size 16] [--epochs 100]
       [--max-steps N] [--no-resume] [--cpu]
 """
 
@@ -22,8 +22,6 @@ import argparse
 import logging
 import os
 import time
-
-import torch
 
 from gradtts_tpu_torch.cli.inference import resolve_device
 from gradtts_tpu_torch.data.dataset import DataLoader
@@ -36,7 +34,7 @@ from gradtts_tpu_torch.train.checkpoint import (restore_checkpoint,
 from gradtts_tpu_torch.train.loop import MetricsLogger, batch_to
 from gradtts_tpu_torch.train.vocoder import (METRICS, init_vocoder_state,
                                              make_vocoder_train_step)
-from gradtts_tpu_torch.utils.convert import load_hifigan_state_dict
+from gradtts_tpu_torch.utils.convert import load_vocoder_checkpoint
 
 log = logging.getLogger('gradtts_tpu_torch.train_vocoder')
 
@@ -72,7 +70,9 @@ def main(argv=None):
     parser.add_argument('--base-mels-path', default=None,
                         help='precomputed generator mels (<stem>.npy)')
     parser.add_argument('--init-generator', default=None,
-                        help='torch HiFi-GAN checkpoint to fine-tune from')
+                        help='HiFi-GAN checkpoint to fine-tune from: a '
+                             'reference .pt, or an orbax directory of the '
+                             'JAX vocoder trainer')
     parser.add_argument('--seed', type=int, default=1234)
     parser.add_argument('--no-resume', action='store_true')
     parser.add_argument('--cpu', action='store_true',
@@ -103,10 +103,7 @@ def main(argv=None):
     payload = None if args.no_resume else restore_checkpoint(ckpt_dir)
     generator_state = None
     if args.init_generator and payload is None:
-        ckpt = torch.load(args.init_generator, map_location='cpu',
-                          weights_only=True)
-        generator_state = load_hifigan_state_dict(
-            ckpt.get('generator', ckpt), cfg)
+        generator_state = load_vocoder_checkpoint(args.init_generator, cfg)
         log.info('initialized generator from %s', args.init_generator)
     state = init_vocoder_state(
         cfg, device, steps_per_epoch=max(len(loader), 1), seed=args.seed,

@@ -169,6 +169,13 @@ class TextMelDataset:
     def __len__(self):
         return len(self.filepaths_and_text)
 
+    def sample_test_batch(self, size, seed=0):
+        """``size`` distinct items, the trainer's previews: the indices of
+        ``default_rng(seed).choice``, as the JAX package picks them."""
+        idx = np.random.default_rng(seed).choice(len(self), size=size,
+                                                 replace=False)
+        return [self[int(i)] for i in idx]
+
 
 class TextMelSpeakerDataset(TextMelDataset):
     """Filelist lines ``wav|text|speaker_id``; items gain 'spk', the id as

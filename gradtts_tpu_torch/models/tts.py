@@ -11,10 +11,12 @@ mels [B, Ty, F], speakers ``spk`` as int ids [B] (``n_spks > 1``) or
 vectors [B, spk_emb_dim] (``n_spks == -1``).
 """
 
+import functools
 import math
 from typing import NamedTuple, Optional
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from gradtts_tpu_torch.config import GradTTSConfig
@@ -191,7 +193,7 @@ def crop_offsets(y_lengths, out_size: int, generator=None):
 
 def compute_loss(model: GradTTS, x, x_lengths, y, y_lengths,
                  out_size: Optional[int] = None, offset=None, t=None, z=None,
-                 generator=None, spk=None) -> LossResult:
+                 generator=None, spk=None, remat: bool = False) -> LossResult:
     """Duration + prior + diffusion losses (``compute_loss`` :234).
 
     x [B, Tx] ids; y [B, Ty, F] mels; ``spk`` speaker ids [B] or vectors
@@ -200,7 +202,11 @@ def compute_loss(model: GradTTS, x, x_lengths, y, y_lengths,
     [B] and noise ``z`` [B, out_size or Ty, F]; each that is None is drawn
     from ``generator``, which also draws the encoder's dropout masks under
     ``train()``. The alignment is MAS on the log-prior grid, without grad;
-    the per-item crop is one batched gather."""
+    the per-item crop is one batched gather. ``remat`` keeps none of the
+    U-Net's activations between its forward and its backward, which runs
+    the forward again (``jax.checkpoint`` at :291-292): the same
+    gradients; as one segment around the whole U-Net, it frees memory
+    only while the rest of the step runs."""
     spk_vec = model.embed_speaker(spk)
     mu_x, logw, x_mask = model.encode(x, x_lengths, generator, spk_vec)
     y_max_length = y.shape[1]
@@ -228,7 +234,13 @@ def compute_loss(model: GradTTS, x, x_lengths, y, y_lengths,
         attn = attn * y_mask[:, None, :, 0]
 
     mu_y = torch.einsum('bxy,bxf->byf', attn, mu_x)
-    diff, _, _ = diffusion_loss(model.decoder.estimator, y, y_mask, mu_y,
+    estimator = model.decoder.estimator
+    if remat:
+        # the U-Net draws nothing at random: no RNG state to stash
+        estimator = functools.partial(
+            torch.utils.checkpoint.checkpoint, estimator,
+            use_reentrant=False, preserve_rng_state=False)
+    diff, _, _ = diffusion_loss(estimator, y, y_mask, mu_y,
                                 model.decoder.beta_min, model.decoder.beta_max,
                                 t=t, z=z, generator=generator, spk=spk_vec)
     prior = torch.sum(0.5 * ((y - mu_y) ** 2 + math.log(2 * math.pi))

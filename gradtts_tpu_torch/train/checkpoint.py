@@ -10,6 +10,9 @@ saving never leaves a partial latest checkpoint. The acoustic trainer
 trainer (``train.vocoder``) stores 'generator' (a plain-weight HiFi-GAN
 ``state_dict``, which ``cli.inference --vocoder`` reads), 'mpd', 'msd',
 both optimizers and their LR schedules.
+
+The JAX package's orbax directories are read by
+``utils.io.read_orbax_checkpoint``.
 """
 
 import os

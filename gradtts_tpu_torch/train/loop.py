@@ -1,6 +1,6 @@
 """The training loop: epochs over the data loader, the train step on the
-device, metrics fetched in batches, per-epoch log line, checkpoints and
-resume.
+device, metrics fetched in batches, per-epoch log line, synthesis
+previews, checkpoints and resume.
 
 Counterpart of gradtts_tpu/train/loop.py:93-368 for one device. The
 parameters and the Adam state are f32 on the device; the forward runs in
@@ -13,8 +13,18 @@ speakers), and a batch's ``spk`` goes to ``compute_loss``. The mels come
 from the device (``DataLoader(device_mel=True)``) when
 ``train.device_mel`` is True, or is None and the trainer runs on a GPU in
 one process, as the JAX package's auto rule picks them on its
-accelerator (:128-131); else from the host's numpy workers. Not ported:
-the epoch-end synthesis previews and plots, and multi-device training.
+accelerator (:128-131); else from the host's numpy workers.
+``train.remat_estimator`` recomputes the U-Net's forward in the backward
+(``compute_loss(remat=True)``).
+
+Previews (:264-317, 371-394): with ``synthesis_every_epoch`` (the default)
+and a dataset of at least ``train.test_size`` items, ``test_size`` of them
+(``sample_test_batch``) are plotted once as ``original_{i}.png``, and every
+``save_every`` epochs they are synthesized (50 Euler steps) and written as
+``generated_enc_{i}.png``, ``generated_dec_{i}.png`` and
+``alignment_{i}.png`` and as TensorBoard images. The plots need
+matplotlib, a host-side package: where it is missing, ``train`` raises
+before the first step. Not ported: multi-device training.
 """
 
 import logging
@@ -28,7 +38,8 @@ import torch
 from gradtts_tpu_torch.config import GradTTSConfig
 from gradtts_tpu_torch.data.dataset import (BatchCollate, DataLoader,
                                             dataset_from_config)
-from gradtts_tpu_torch.models.tts import GradTTS, set_compute_dtype
+from gradtts_tpu_torch.models.tts import (GradTTS, set_compute_dtype,
+                                          synthesize)
 from gradtts_tpu_torch.train.checkpoint import (restore_checkpoint,
                                                 save_checkpoint)
 from gradtts_tpu_torch.train.state import METRICS, make_optimizer, train_step
@@ -58,6 +69,12 @@ class MetricsLogger:
         if self._tb is not None:
             for k, v in metrics.items():
                 self._tb.add_scalar(k, v, global_step=step)
+
+    def images(self, images: dict, step: int):
+        """HWC uint8 arrays as TensorBoard images."""
+        if self._tb is not None:
+            for k, v in images.items():
+                self._tb.add_image(k, v, global_step=step, dataformats='HWC')
 
     def text(self, msg: str):
         self._txt.write(msg + '\n')
@@ -122,13 +139,11 @@ def batch_to(batch: dict, device) -> dict:
 
 def check_ported(cfg: GradTTSConfig) -> None:
     """Raises ValueError at a training setting the port cannot honour:
-    the JAX package's remat of the estimator and its device mesh
-    (``gradtts_tpu/train/loop.py:104,133-134``). One device
-    (``mesh_data`` -1 or 1, ``mesh_model`` 1) is what the port runs."""
+    the JAX package's device mesh (``gradtts_tpu/train/loop.py:104``). One
+    device (``mesh_data`` -1 or 1, ``mesh_model`` 1) is what the port
+    runs."""
     t = cfg.train
     for refused, what in [
-            (t.remat_estimator, 'train.remat_estimator=True (remat of the '
-                                'U-Net)'),
             (t.mesh_data not in (-1, 1), f'train.mesh_data={t.mesh_data} '
                                          '(data-parallel training)'),
             (t.mesh_model != 1, f'train.mesh_model={t.mesh_model} (a model '
@@ -149,13 +164,73 @@ def use_device_mel(cfg: GradTTSConfig, device) -> bool:
     return torch.device(device).type == 'cuda' and one_process
 
 
+def preview_budget(n_tokens: int) -> int:
+    """The frame budget of a preview of ``n_tokens`` tokens (:386)."""
+    return int(4 * max(32, 2 * n_tokens))
+
+
+def synthesis_preview(cfg: GradTTSConfig, model: GradTTS, test_items,
+                      n_timesteps: int = 50, noise=None):
+    """Synthesis of held-out items (:371-394) on the model's device, in
+    eval mode: a list of (encoder mel [L, F], decoder mel [L, F],
+    alignment [Tx, L]) numpy arrays, L the item's predicted frames.
+    ``noise``: one standard normal draw [1, budget, n_feats] an item
+    (budget :func:`preview_budget` of its tokens), or None: each drawn
+    from a generator seeded 0, the same draw at every call, as the JAX
+    package draws each from ``PRNGKey(0)``."""
+    device = next(model.parameters()).device
+    was_training = model.training
+    model.eval()
+    out = []
+    try:
+        for i, item in enumerate(test_items):
+            x = torch.from_numpy(np.asarray(item['x'])).long()[None]
+            spk = None
+            if 'spk' in item:       # an id [1], or a vector [D]
+                spk = torch.from_numpy(np.asarray(item['spk']))
+                spk = (spk[None] if spk.is_floating_point() else spk).to(
+                    device)
+            budget = preview_budget(x.shape[1])
+            z = noise[i] if noise is not None else torch.randn(
+                (1, budget, cfg.data.n_feats), device=device,
+                generator=torch.Generator(device=device).manual_seed(0))
+            res = synthesize(model, x.to(device),
+                             torch.tensor([x.shape[1]], device=device),
+                             n_timesteps, budget, noise=torch.as_tensor(
+                                 z, device=device), spk=spk)
+            n = int(res.y_lengths[0])
+            out.append((res.encoder_outputs[0, :n].float().cpu().numpy(),
+                        res.decoder_outputs[0, :n].float().cpu().numpy(),
+                        res.attn[0, :, :n].float().cpu().numpy()))
+    finally:
+        model.train(was_training)
+    return out
+
+
+def _plotting():
+    """The plotting module, or a RuntimeError where matplotlib is
+    missing: previews are refused at start-up, never skipped."""
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError as e:
+        raise RuntimeError(
+            'the training previews need matplotlib, which this machine '
+            'lacks: pass --no-previews to cli.train '
+            '(synthesis_every_epoch=False)') from e
+    from gradtts_tpu_torch.utils import plotting
+    return plotting
+
+
 def train(cfg: GradTTSConfig, n_epochs: Optional[int] = None,
           max_steps: Optional[int] = None, log_dir: Optional[str] = None,
-          resume: bool = True, loader=None, device=None) -> TrainResult:
+          resume: bool = True, loader=None, device=None,
+          synthesis_every_epoch: bool = True) -> TrainResult:
     """Trains per ``cfg`` on ``device`` (default ``cuda``) and returns the
     final step, model, optimizer and generator. ``loader`` (an iterable of
-    collated batches) replaces the dataset of ``cfg``; ``max_steps`` bounds
-    the steps of this call. Settings the port cannot honour raise
+    collated batches) replaces the dataset of ``cfg``, and with it the
+    previews; ``max_steps`` bounds the steps of this call;
+    ``synthesis_every_epoch`` writes the previews (see the module's
+    docstring). Settings the port cannot honour raise
     (:func:`check_ported`)."""
     check_ported(cfg)
     log_dir = log_dir or cfg.train.log_dir
@@ -180,25 +255,51 @@ def train(cfg: GradTTSConfig, n_epochs: Optional[int] = None,
         start_step = int(payload['step'])
         log.info('resumed from step %d', start_step)
 
+    dataset = None
     if loader is None:
         device_mel = use_device_mel(cfg, device)
         log.info('input pipeline: %s mels', 'device' if device_mel
                  else 'host')
-        loader = DataLoader(dataset_from_config(cfg),
-                            cfg.train.batch_size,
+        dataset = dataset_from_config(cfg)
+        loader = DataLoader(dataset, cfg.train.batch_size,
                             BatchCollate(cfg.data.x_buckets,
                                          cfg.data.y_buckets),
                             shuffle=True, seed=cfg.train.seed,
                             device_mel=device_mel, device=device)
+    test_items = plotting = None
+    if (synthesis_every_epoch and dataset is not None
+            and len(dataset) >= cfg.train.test_size):
+        plotting = _plotting()
+        test_items = dataset.sample_test_batch(cfg.train.test_size)
     metrics_log = MetricsLogger(log_dir, METRICS)
+
+    def log_previews(at_step):
+        images = {}
+        for i, (y_enc, y_dec, attn) in enumerate(
+                synthesis_preview(cfg, model, test_items)):
+            for name, mat in (('generated_enc', y_enc.T),
+                              ('generated_dec', y_dec.T),
+                              ('alignment', attn)):
+                images[f'image_{i}/{name}'] = plotting.plot_tensor(mat)
+                plotting.save_plot(mat, os.path.join(log_dir,
+                                                     f'{name}_{i}.png'))
+        metrics_log.images(images, at_step)
+
     step = start_step
     try:
+        if test_items is not None:
+            metrics_log.images({
+                f'image_{i}/ground_truth': plotting.plot_tensor(item['y'].T)
+                for i, item in enumerate(test_items)}, 0)
+            for i, item in enumerate(test_items):
+                plotting.save_plot(item['y'].T, os.path.join(
+                    log_dir, f'original_{i}.png'))
         for epoch in range(n_epochs):
             t0 = time.time()
             for batch in loader:
                 metrics = train_step(model, optimizer, batch_to(batch, device),
                                      cfg.out_size, cfg.train.grad_clip_norm,
-                                     generator)
+                                     generator, cfg.train.remat_estimator)
                 step += 1
                 metrics_log.add(step, metrics)
                 if max_steps is not None and step - start_step >= max_steps:
@@ -210,6 +311,8 @@ def train(cfg: GradTTSConfig, n_epochs: Optional[int] = None,
                     f'({cfg.data.train_filelist_path!r}) and batch_size '
                     f'({cfg.train.batch_size}) against the dataset size')
             if (epoch + 1) % cfg.train.save_every == 0:
+                if test_items is not None:
+                    log_previews(step)
                 save_checkpoint(ckpt_dir, step, {
                     'model': model.state_dict(),
                     'optimizer': optimizer.state_dict(),

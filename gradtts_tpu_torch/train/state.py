@@ -35,17 +35,20 @@ def subtree_clip(model: GradTTS, max_norm: float):
 
 
 def train_step(model: GradTTS, optimizer, batch: dict, out_size,
-               grad_clip_norm: float = 1.0, generator=None) -> dict:
+               grad_clip_norm: float = 1.0, generator=None,
+               remat: bool = False) -> dict:
     """One step on ``batch`` ({'x', 'x_lengths', 'y', 'y_lengths'} and, for
     a model with speakers, 'spk', on the model's device): losses,
     backward, clip, Adam. The crop, the diffusion
     draws and (under ``train()``) the dropout masks come from
-    ``generator``. Returns the six metrics of the JAX step (:110-117) as
-    0-d tensors on the device, not fetched."""
+    ``generator``; ``remat`` recomputes the U-Net's forward in the
+    backward (``compute_loss``). Returns the six metrics of the JAX step
+    (:110-117) as 0-d tensors on the device, not fetched."""
     optimizer.zero_grad(set_to_none=True)
     res = compute_loss(model, batch['x'], batch['x_lengths'], batch['y'],
                        batch['y_lengths'], out_size=out_size,
-                       generator=generator, spk=batch.get('spk'))
+                       generator=generator, spk=batch.get('spk'),
+                       remat=remat)
     total = res.dur_loss + res.prior_loss + res.diff_loss
     total.backward()
     enc_norm, dec_norm = subtree_clip(model, grad_clip_norm)

@@ -15,6 +15,13 @@ mapping below is the port's own copy of that file's ``_encoder_torch_key``
        convert.py:44-45; the flip is undone here)
   everything else                    -> copied
 
+``state_dict_to_flax_params`` is the exact inverse of
+``flax_params_to_state_dict``, so that a port checkpoint exports to the
+JAX package's ``.npz`` layout (``utils.io.save_params_npz``).
+``load_checkpoint`` and ``load_vocoder_checkpoint`` read every checkpoint
+format the CLIs take, orbax directories of the JAX trainers included
+(``utils.io.read_orbax_checkpoint``).
+
 The vocoder's bridge (gradtts_tpu/models/hifigan.py :372-420):
 ``load_hifigan_state_dict`` folds a reference generator's weight norm as
 ``_fold_weight_norm`` does, and ``hifigan_flax_to_state_dict`` is the
@@ -28,7 +35,12 @@ import re
 import numpy as np
 import torch
 
+from gradtts_tpu_torch.utils.io import load_params_npz, read_orbax_checkpoint
+
 _IDX = re.compile(r'^(.*)_(\d+)$')
+# the encoder's module lists: flax 'conv_layers_0' is torch 'conv_layers.0'
+_ENCODER_LISTS = ('conv_layers', 'norm_layers', 'attn_layers', 'ffn_layers',
+                  'norm_layers_1', 'norm_layers_2')
 
 
 def _encoder_torch_key(path):
@@ -39,8 +51,7 @@ def _encoder_torch_key(path):
     for m in mods:
         match = _IDX.match(m)
         base, idx = (match.group(1), match.group(2)) if match else (m, None)
-        if base in ('conv_layers', 'norm_layers', 'attn_layers', 'ffn_layers',
-                    'norm_layers_1', 'norm_layers_2'):
+        if base in _ENCODER_LISTS:
             torch_parts += [base, idx]
         else:
             torch_parts.append(m)
@@ -156,16 +167,127 @@ def flax_params_to_state_dict(params) -> dict:
     return sd
 
 
-def _unflatten_npz(flat):
-    """'/'-joined keys (gradtts_tpu/utils/io.py save_params_npz) -> tree."""
+# torch layout -> flax array, the inverse of _TO_TORCH
+_TO_FLAX = {
+    None: lambda w: w,
+    'conv1d': lambda w: w.transpose(2, 1, 0),
+    'dense': lambda w: w.T,
+    'dense_from_conv1': lambda w: w[:, :, 0].T,
+    'conv2d': lambda w: w.transpose(2, 3, 1, 0),
+    'convT2d': lambda w: w.transpose(2, 3, 0, 1)[::-1, ::-1],
+}
+
+
+def _encoder_flax_path(parts):
+    """['prenet', 'conv_layers', '0', 'weight'] -> (('prenet',
+    'conv_layers_0', 'kernel'), kind): the inverse of
+    :func:`_encoder_torch_key`."""
+    *mods, leaf = parts
+    path = []
+    for m in mods:
+        if path and m.isdigit() and path[-1] in _ENCODER_LISTS:
+            path[-1] = f'{path[-1]}_{m}'
+        else:
+            path.append(m)
+    if leaf != 'weight':
+        return tuple(path) + (leaf,), None
+    if path[-1] == 'emb':
+        return tuple(path) + ('embedding',), None
+    kind = 'dense_from_conv1' if path[-1] in (
+        'conv_q', 'conv_k', 'conv_v', 'conv_o') else 'conv1d'
+    return tuple(path) + ('kernel',), kind
+
+
+def _estimator_flax_path(parts):
+    """A key under decoder.estimator, split on '.' -> (flax path, kind):
+    the inverse of :func:`_estimator_torch_key`."""
+    leaf = {'weight': 'kernel', 'bias': 'bias'}
+
+    def conv_leaf(p, kind):
+        return (leaf[p],), kind if p == 'weight' else None
+
+    def resblock(sub):
+        if sub[0] in ('block1', 'block2'):
+            which = {'0': 'conv', '1': 'norm'}[sub[2]]
+            if which == 'norm':
+                return (sub[0], 'norm',
+                        'scale' if sub[3] == 'weight' else 'bias'), None
+            path, kind = conv_leaf(sub[3], 'conv2d')
+            return (sub[0], 'conv') + path, kind
+        if sub[0] == 'mlp':
+            path, kind = conv_leaf(sub[2], 'dense')
+            return ('mlp_dense',) + path, kind
+        if sub[0] == 'res_conv':
+            path, kind = conv_leaf(sub[1], 'conv2d')
+            return ('res_conv',) + path, kind
+        raise KeyError(sub)
+
+    def attnblock(sub):
+        if sub[1] == 'g':
+            return ('g',), None
+        path, kind = conv_leaf(sub[3], 'conv2d')
+        return ('fn', sub[2]) + path, kind
+
+    name = parts[0]
+    if name in ('downs', 'ups'):
+        role = {'0': 'res1', '1': 'res2', '2': 'attn',
+                '3': 'down' if name == 'downs' else 'up'}[parts[2]]
+        top, sub = f'{name}_{parts[1]}_{role}', parts[3:]
+        if role in ('res1', 'res2'):
+            path, kind = resblock(sub)
+        elif role == 'attn':
+            path, kind = attnblock(sub)
+        elif role == 'down':
+            path, kind = conv_leaf(sub[1], 'conv2d')
+            path = ('conv',) + path
+        else:
+            path, kind = conv_leaf(sub[1], 'convT2d')
+        return (top,) + path, kind
+    if name in ('mid_block1', 'mid_block2'):
+        path, kind = resblock(parts[1:])
+        return (name,) + path, kind
+    if name == 'mid_attn':
+        path, kind = attnblock(parts[1:])
+        return (name,) + path, kind
+    if name == 'final_block':
+        if parts[2] == '1':
+            return (name, 'norm',
+                    'scale' if parts[3] == 'weight' else 'bias'), None
+        path, kind = conv_leaf(parts[3], 'conv2d')
+        return (name, 'conv') + path, kind
+    if name == 'final_conv':
+        path, kind = conv_leaf(parts[1], 'conv2d')
+        return (name,) + path, kind
+    if name in ('mlp', 'spk_mlp'):
+        path, kind = conv_leaf(parts[2], 'dense')
+        return (f'{name}_{parts[1]}',) + path, kind
+    raise KeyError(f'unhandled estimator key {".".join(parts)}')
+
+
+def state_dict_to_flax_params(state_dict) -> dict:
+    """A reference-layout GradTTS ``state_dict`` -> the JAX package's param
+    tree ``{'params': ...}`` of f32 numpy arrays: the exact inverse of
+    :func:`flax_params_to_state_dict`, so that a port checkpoint exports to
+    ``.npz`` (``utils.io.save_params_npz``) for the JAX CLIs."""
     tree = {}
-    for key, v in flat.items():
-        *parents, leaf = key.split('/')
+    for key, value in state_dict.items():
+        top, *parts = key.split('.')
+        if top == 'encoder':
+            path, kind = _encoder_flax_path(parts)
+            path = ('encoder',) + path
+        elif top == 'decoder' and parts[0] == 'estimator':
+            path, kind = _estimator_flax_path(parts[1:])
+            path = ('estimator',) + path
+        elif key == 'spk_emb.weight':
+            path, kind = ('spk_emb', 'embedding'), None
+        else:
+            raise KeyError(f'unhandled state_dict key {key}')
+        w = torch.as_tensor(value).detach().cpu().float().numpy()
         node = tree
-        for p in parents:
+        for p in path[:-1]:
             node = node.setdefault(p, {})
-        node[leaf] = v
-    return tree
+        node[path[-1]] = np.array(_TO_FLAX[kind](w), order='C')
+    return {'params': tree}
 
 
 def detect_encoder_speaker(state_dict, n_enc_channels: int) -> bool:
@@ -261,16 +383,43 @@ def discriminator_flax_to_state_dict(params) -> dict:
 
 def load_checkpoint(path: str) -> dict:
     """A reference-layout ``state_dict`` from a reference ``.pt``/``.pth``
-    file or from a ``.npz`` param tree written by the JAX package."""
+    file (or a trainer's ``ckpt/step_*.pt``), a ``.npz`` param tree written
+    by either package, or an orbax checkpoint directory of the JAX
+    package's acoustic trainer (a ``step_*`` directory, or the checkpoint
+    directory, whose latest step is read; ``utils.io
+    .read_orbax_checkpoint``, which needs tensorstore)."""
+    if os.path.isdir(path):
+        params = read_orbax_checkpoint(path)['params']
+        if 'gen' in params:
+            raise ValueError(f'{path!r} is a vocoder checkpoint (its params '
+                             "are 'gen', 'mpd' and 'msd'); pass it as a "
+                             'vocoder')
+        return flax_params_to_state_dict(params)
     if path.endswith(('.pt', '.pth')):
         sd = torch.load(path, map_location='cpu', weights_only=True)
         if isinstance(sd.get('model'), dict):
             sd = sd['model']
         return sd
     if path.endswith('.npz'):
-        with np.load(path) as data:
-            return flax_params_to_state_dict(
-                _unflatten_npz({k: data[k] for k in data.files}))
-    kind = 'directory' if os.path.isdir(path) else 'file'
-    raise ValueError(f'unsupported checkpoint {kind} {path!r}: the port loads '
-                     'reference .pt files and .npz param trees')
+        return flax_params_to_state_dict(load_params_npz(path))
+    raise ValueError(f'unsupported checkpoint file {path!r}: the port loads '
+                     'reference .pt files, .npz param trees and orbax '
+                     'directories')
+
+
+def load_vocoder_checkpoint(path: str, cfg) -> dict:
+    """The plain ``state_dict`` of ``models.hifigan.Generator(cfg)`` from a
+    reference HiFi-GAN ``.pt`` or a vocoder trainer's ``ckpt/step_*.pt``
+    (its ``generator`` key, or a bare generator ``state_dict``), or from an
+    orbax directory of the JAX package's
+    vocoder trainer, whose params are ``{'gen', 'mpd', 'msd'}``
+    (gradtts_tpu/cli/train_vocoder.py:178-186): the generator's are read."""
+    if os.path.isdir(path):
+        params = read_orbax_checkpoint(path)['params']
+        if 'gen' not in params:
+            raise ValueError(f'{path!r} is not a vocoder checkpoint: its '
+                             f'params hold {sorted(params)}, not '
+                             "'gen', 'mpd' and 'msd'")
+        return hifigan_flax_to_state_dict(params['gen'], cfg)
+    sd = torch.load(path, map_location='cpu', weights_only=True)
+    return load_hifigan_state_dict(sd.get('generator', sd), cfg)

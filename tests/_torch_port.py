@@ -2,6 +2,7 @@
 tiny GradTTS whose every parameter is drawn from a numpy seed, in both
 packages."""
 
+import contextlib
 import os
 
 import numpy as np
@@ -123,3 +124,53 @@ def write_corpus(directory, n_items: int = 5, sr: int = 22050,
     filelist = directory / 'list.txt'
     filelist.write_text('\n'.join(lines) + '\n')
     return str(filelist)
+
+
+def _groupnorm_f64(x, gamma, beta, groups, eps, phases):
+    """GroupNorm's affine output with two-pass f64 statistics, rounded to
+    f32 once: x [B, F, T, C], C = phases * len(gamma), the statistics
+    pooled over the phase dim as the JAX package's ``_reference`` pools
+    them."""
+    B, F, T, C = x.shape
+    cg = C // phases // groups
+    x64 = np.asarray(x, np.float64).reshape(B, F, T, phases, groups, cg)
+    mean = x64.mean(axis=(1, 2, 3, 5), keepdims=True)
+    var = ((x64 - mean) ** 2).mean(axis=(1, 2, 3, 5), keepdims=True)
+    g = np.asarray(gamma, np.float64).reshape(1, 1, 1, 1, groups, cg)
+    b = np.asarray(beta, np.float64).reshape(1, 1, 1, 1, groups, cg)
+    return ((x64 - mean) / np.sqrt(var + eps) * g + b).reshape(
+        B, F, T, C).astype(np.float32)
+
+
+@contextlib.contextmanager
+def f64_groupnorm_statistics():
+    """Both packages' plain GroupNorm + Mish with two-pass f64 statistics
+    (``_groupnorm_f64``) in place of their single-pass f32 E[x^2] - E[x]^2,
+    the Mish and the mask as before. Over a frame budget that is mostly
+    padding the f32 formula cancels, and there the two packages part by as
+    much as their summation orders differ; with these statistics what is
+    left is the rest of the model. JAX reaches numpy through
+    ``pure_callback``; its traces are dropped on entry and exit."""
+    from gradtts_tpu.ops.pallas import groupnorm_mish as jgn
+    from gradtts_tpu_torch.ops import groupnorm_mish as tgn
+
+    def jax_plain(x, mask, gamma, beta, groups, eps, phases=1):
+        y = jax.pure_callback(
+            lambda a, g, b: _groupnorm_f64(a, g, b, groups, eps, phases),
+            jax.ShapeDtypeStruct(x.shape, jnp.float32), x, gamma, beta)
+        return (jgn._mish_f32(y) * mask.astype(jnp.float32)).astype(x.dtype)
+
+    def torch_plain(x, mask, gamma, beta, groups=8, eps=1e-5):
+        y = torch.from_numpy(_groupnorm_f64(
+            x.detach().float().numpy(), gamma.detach().numpy(),
+            beta.detach().numpy(), groups, eps, 1))
+        return (tgn.mish_f32(y) * mask.float()).to(x.dtype)
+
+    saved = jgn._reference, tgn.groupnorm_mish_plain
+    jgn._reference, tgn.groupnorm_mish_plain = jax_plain, torch_plain
+    jax.clear_caches()
+    try:
+        yield
+    finally:
+        jgn._reference, tgn.groupnorm_mish_plain = saved
+        jax.clear_caches()

@@ -3,10 +3,12 @@ package, its entry points (synthesis, n-best scoring) never fall back to
 the CPU, it builds every preset of the JAX package and loads its weights,
 and its CPU paths launch no kernel."""
 
+import importlib
 import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -29,25 +31,38 @@ from gradtts_tpu_torch.utils.convert import flax_params_to_state_dict
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _IMPORT_ALL = """
-import pkgutil, importlib, sys
+import pkgutil, importlib, importlib.abc, sys
+
+class Absent(importlib.abc.MetaPathFinder):
+    # the GPU machine lacks the orbax reader's tensorstore, the plots'
+    # matplotlib and tqdm: here they cannot be imported either
+    def find_spec(self, name, path, target=None):
+        if name.split('.')[0] in ('tensorstore', 'matplotlib', 'tqdm'):
+            raise ImportError(f'{name} is absent')
+
+sys.meta_path.insert(0, Absent())
 import gradtts_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(gradtts_tpu_torch.__path__,
                                                'gradtts_tpu_torch.')]
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
-             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'gradtts_tpu'))
+             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'gradtts_tpu',
+                                    'tensorstore', 'matplotlib', 'tqdm'))
 print(len(names), 'modules;', 'forbidden:', bad)
 assert not bad
 for needed in ('likelihood.ode', 'likelihood.sde', 'nbest.scoring',
                'nbest.sweep', 'cli.nbest', 'models.hifigan',
-               'data.dataset', 'utils.convert'):
+               'data.dataset', 'utils.convert', 'utils.io', 'utils.plotting',
+               'cli.generate', 'cli.inference_zero', 'cli.playground'):
     assert 'gradtts_tpu_torch.' + needed in names, needed
 assert len(names) >= 40
 """
 
 
 def test_imports_neither_jax_nor_the_jax_package():
+    """Nor tensorstore, matplotlib or tqdm, which the GPU machine lacks:
+    every module, every CLI included, imports without them."""
     env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}
     proc = subprocess.run([sys.executable, '-c', _IMPORT_ALL], cwd=REPO,
                           env=env, capture_output=True, text=True,
@@ -62,6 +77,22 @@ def test_entry_point_without_gpu_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match='no CUDA device'):
         inference_main(['-f', str(texts), '-c', 'unused.pt',
                         '-o', str(tmp_path / 'o')])
+
+
+@pytest.mark.parametrize('cli', ['generate', 'inference_zero',
+                                 'playground'])
+def test_new_entry_points_without_gpu_raise(cli, monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    emb = tmp_path / 'vec.npy'
+    np.save(emb, np.zeros(192, np.float32))
+    argv = {'generate': ['-o', str(tmp_path / 'o'), '-c', 'unused.pt'],
+            'inference_zero': ['-f', 'unused.txt', '-c', 'unused.pt',
+                               '--spk-emb', str(emb)],
+            'playground': ['--checkpoint', 'unused.pt', '--filelist',
+                           'unused.txt']}[cli]
+    main = importlib.import_module(f'gradtts_tpu_torch.cli.{cli}').main
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        main(argv)
 
 
 def test_nbest_score_without_gpu_raises(monkeypatch, tmp_path):

@@ -92,7 +92,7 @@ def test_read_only_install_without_nvcc_creates_nothing(monkeypatch,
 
 # ---- the trainer's refusals --------------------------------------------------
 
-REFUSED = [('train.remat_estimator', True), ('train.mesh_data', 2), ('train.mesh_data', 0),
+REFUSED = [('train.mesh_data', 2), ('train.mesh_data', 0),
            ('train.mesh_model', 2)]
 
 
@@ -158,7 +158,7 @@ def test_train_takes_device_mels(tmp_path, caplog):
                        'data.train_filelist_path': write_corpus(tmp_path, 4)})
     with caplog.at_level('INFO', logger='gradtts_tpu_torch.train'):
         res = train(cfg, max_steps=1, log_dir=str(tmp_path / 'logs'),
-                    device='cpu')
+                    device='cpu', synthesis_every_epoch=False)
     assert res.step == 1
     assert 'input pipeline: device mels' in caplog.text
     assert (tmp_path / 'logs' / 'ckpt' / 'step_00000001.pt').exists()
@@ -169,7 +169,7 @@ def test_train_cli_takes_device_mels(tmp_path, caplog):
     with caplog.at_level('INFO', logger='gradtts_tpu_torch.train'):
         res = train_main([
             '--cpu', '--max-steps', '1', '--log-dir', str(log_dir),
-            '--batch-size', '2', '--set', *TINY_SET,
+            '--batch-size', '2', '--no-previews', '--set', *TINY_SET,
             f'data.cmudict_path={CMUDICT}',
             f'data.train_filelist_path={write_corpus(tmp_path, 4)}',
             'data.x_buckets=(64,)', 'data.y_buckets=(64,)',

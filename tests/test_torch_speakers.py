@@ -382,6 +382,7 @@ def test_train_cli_trains_a_speaker_preset(tmp_path):
     log_dir = tmp_path / 'logs'
     res = train_main(['--preset', 'tedlium-spk', '--cpu', '--max-steps', '1',
                       '--log-dir', str(log_dir), '--batch-size', '2',
+                      '--no-previews',
                       '--set', *TINY_SET,
                       f'data.train_filelist_path={filelist}',
                       f'data.cmudict_path={CMUDICT}', 'data.x_buckets=(64,)',

@@ -147,15 +147,17 @@ def test_cli_runs_each_ported_flag(tiny, tmp_path, capsys, flag):
             assert wav.shape == (mel.shape[0] * 256,) and wav.any()
 
 
-def test_cli_refuses_a_vocoder_directory(tmp_path, capsys):
-    """A vocoder checkpoint directory of the JAX package (orbax) is not
-    ported yet."""
+def test_cli_refuses_a_vocoder_directory(tiny, tmp_path):
+    """A vocoder directory that holds no orbax checkpoint is refused with
+    a message that says so (tests/test_torch_checkpoint.py loads one that
+    the JAX vocoder trainer wrote)."""
+    _, params = tiny
+    ckpt = tmp_path / 'tiny.pt'
+    torch.save(flax_params_to_state_dict(params), ckpt)
     (tmp_path / 'orbax_vocoder').mkdir()
-    with pytest.raises(SystemExit) as exit_info:
-        inference_main(_cli_args(tmp_path, tmp_path / 'missing.pt', [
+    with pytest.raises(ValueError, match='unsupported checkpoint directory'):
+        inference_main(_cli_args(tmp_path, ckpt, [
             '--vocoder', str(tmp_path / 'orbax_vocoder')]))
-    assert exit_info.value.code == 2
-    assert 'not ported' in capsys.readouterr().err
 
 
 def test_cli_speaker_flag_needs_a_speaker_preset(tmp_path, capsys):

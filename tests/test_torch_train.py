@@ -282,7 +282,7 @@ def test_train_cli_resumes_and_inference_reads_its_checkpoint(tmp_path,
                                                               capsys):
     log_dir = tmp_path / 'logs'
     args = ['--cpu', '--max-steps', '1', '--log-dir', str(log_dir),
-            '--batch-size', '2', '--set', *TINY_SET,
+            '--batch-size', '2', '--no-previews', '--set', *TINY_SET,
             f'data.train_filelist_path={write_corpus(tmp_path, 4)}',
             f'data.cmudict_path={CMUDICT}', 'data.x_buckets=(64,)',
             'data.y_buckets=(64,)', 'train.use_bf16_compute=False']
