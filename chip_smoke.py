@@ -96,23 +96,42 @@ Phases, each printing one JSON line:
               both ways (peak memory, wall and device time, launches), and
               cli.train --set train.remat_estimator=True --no-previews;
  17. previews  the trainer's synthesis_preview (4 items of a corpus of
-              short texts, 50 Euler steps, f32) on the GPU against the CPU
-              with the same noise;
+              short texts, 50 Euler steps, f32) on the GPU, the first two
+              against the CPU with the same noise;
  18. generate  python -m gradtts_tpu_torch.cli.generate on a synthetic
               tedlium split (the first 20 texts of its test filelist, wavs
               of 1.5-10 s, 192-d speaker vectors, B 8: a tail of 4) with
               the seeded V1 vocoder, s a batch and audio-s/s; then without
-              the vocoder, two rows of its first batch against the CPU with
-              the same noise;
+              the vocoder, the first row of its first batch against the CPU
+              with the same noise;
  19. inference_zero  python -m gradtts_tpu_torch.cli.inference_zero
               --spk-emb with the vocoder (the wavs), then its mels against
               synthesize called with the same vector, bit for bit;
  20. playground  python -m gradtts_tpu_torch.cli.playground: 3 utterances
               of the train corpus, 10 Euler steps, 3 probes each.
+ 21. evaluate  python -m gradtts_tpu_torch.cli.evaluate on the seeded
+              ljspeech checkpoint and V1 vocoder over an 8-utterance test
+              split (ljspeech test texts, 22.05 kHz wavs of 1.5-10 s), 50
+              Euler steps, f32: metrics finite, the MEAN: line the file's,
+              the two shortest utterances against the CPU with the same
+              noise (mel, the vocoder on one mel, MCD, GPE/VDE/FFE,
+              voicing flips counted; the waveforms' difference reported),
+              seconds of synthesis, vocoder and host DSP;
+ 22. evaluate_mcd  python -m gradtts_tpu_torch.cli.evaluate_mcd --nj 2 as
+              a subprocess on those wavs against the split's: 8 finite
+              rows;
+ 23. quality_gate  the trained-weights gate of
+              tests/test_e2e_quality_gate.py with the port on the card: one
+              train step of its tiny model (dec_dim 16, 32 mels) GPU
+              against CPU, 800 train steps on the sine-chunk corpus, then
+              synthesis, a tiny HiFi-GAN and the eval metrics, trained
+              against untrained at the JAX gate's margins; DPM-8/10 and
+              Euler-10/50 against a 400-step Euler truth on the trained
+              weights.
 Each timed path (synth, dpm8, waveform, multispeaker, train,
-vocoder_train, train_spk, likelihood) and each path of phases 15-20 sets
+vocoder_train, train_spk, likelihood) and each path of phases 15-23 sets
 the launch counts to 0 just before its main run and reads them just after
-(the GAN step launches no hand kernel); phases 15-20 run their CLIs in
+(the GAN step launches no hand kernel); phases 15-21 run their CLIs in
 this process, so that their launches are counted. Then each phase's
 seconds ({"phase_seconds": {...}}), the total seconds, the card's name
 and power limit (nvidia-smi), the {"kernels": [...]} line, and last
@@ -1001,9 +1020,10 @@ def _cli_outputs(out, n, wav):
 
 
 def phase_cli(ckpt, spk_ckpt, vocoder_ckpt):
-    """python -m gradtts_tpu_torch.cli.inference on the seeded checkpoints:
-    the Euler ODE, DPM with the vocoder, the SDE (--stoc) with the
-    vocoder, and a speaker of the seeded tedlium-spk model (-s 3)."""
+    """python -m gradtts_tpu_torch.cli.inference, in this process, on the
+    seeded checkpoints: the Euler ODE, DPM with the vocoder, the SDE
+    (--stoc) with the vocoder, and a speaker of the seeded tedlium-spk
+    model (-s 3)."""
     texts = os.path.join(WORK, 'texts.txt')
     with open(texts, 'w', encoding='utf-8') as f:
         f.write('The quick brown fox jumps over the lazy dog.\n'
@@ -1018,9 +1038,8 @@ def phase_cli(ckpt, spk_ckpt, vocoder_ckpt):
     line = {'phase': 'cli'}
     for name, (c, extra) in runs.items():
         out = os.path.join(WORK, f'cli_out_{name}')
-        proc, seconds = _run_cli('gradtts_tpu_torch.cli.inference', [
+        _, seconds = _cli_main('gradtts_tpu_torch.cli.inference', [
             '-f', texts, '-c', c, '-o', out, '-t', str(STEPS), *extra])
-        print(proc.stdout, end='')
         line[name] = {'args': extra, 'seconds': seconds,
                       'outputs': _cli_outputs(out, 3, '--vocoder' in extra)}
     emit(line)
@@ -1269,9 +1288,9 @@ def phase_train(device, card):
         f.write('Printing, in the only sense with which we are at present '
                 'concerned.\n')
     out = os.path.join(WORK, 'train_cli_out')
-    _, infer_s = _run_cli('gradtts_tpu_torch.cli.inference',
-                          ['-f', texts, '-c', ckpt, '-o', out, '-t',
-                           str(STEPS), '--bf16'])
+    _, infer_s = _cli_main('gradtts_tpu_torch.cli.inference',
+                           ['-f', texts, '-c', ckpt, '-o', out, '-t',
+                            str(STEPS), '--bf16'])
     mel = np.load(os.path.join(out, 'mel_0.npy'))
     require(mel.ndim == 2 and mel.shape[1] == 80 and np.isfinite(mel).all(),
             'train: inference from the trained checkpoint is malformed')
@@ -1491,13 +1510,14 @@ def _nbest_cli(ckpt, name, corpus, preset_args, score_only=False):
     if score_only:
         compile_scores(out_dir, NBEST_UTTS, NBEST_N, npy)
     else:
-        _, line['compile_seconds'] = _run_cli(module, [
+        # compile and rescore are host-side: in this process
+        _, line['compile_seconds'] = _cli_main(module, [
             'compile', '--directory', out_dir, '-I', str(NBEST_UTTS), '-N',
             str(NBEST_N), '--out', npy])
-        rescored, _ = _run_cli(module, [
+        rescored, _ = _cli_main(module, [
             'rescore', '--n-best', pkl, '--diff-scores', npy, '-n',
             str(NBEST_N), '--weight', 'diffusion_score=-0.001'])
-        line['rescored_wer'] = json.loads(rescored.stdout)['wer']
+        line['rescored_wer'] = json.loads(rescored)['wer']
     mat = np.load(npy)
     shards = sorted(f for f in os.listdir(out_dir) if f.endswith('.json'))
     emit({**line, 'pairs_scored': len(shards), 'scores': mat.tolist()})
@@ -2384,7 +2404,7 @@ def phase_vocoder_train(device, card, ckpt):
     with open(texts, 'w', encoding='utf-8') as f:
         f.write('A vocoder trained on the card.\n')
     out = os.path.join(WORK, 'vocoder_cli_out')
-    _, infer_s = _run_cli('gradtts_tpu_torch.cli.inference', [
+    _, infer_s = _cli_main('gradtts_tpu_torch.cli.inference', [
         '-f', texts, '-c', ckpt, '-o', out, '-t', str(STEPS), '--vocoder',
         vckpt])
     wav_shape = _cli_outputs(out, 1, wav=True)
@@ -2732,13 +2752,15 @@ def phase_remat(device, card):
 PREVIEW_TEXTS = ('Hello world.', 'Good morning to you.', 'It is late.',
                  'The port runs here.', 'A short one.', 'Read it back.')
 PREVIEW_TOL = SLICE_TOL   # of max |mel|: GPU vs CPU, f32, TF32 off
+PREVIEW_CPU_ITEMS = 2     # of the 4 preview items, synthesized again on the CPU
 
 
 def phase_previews(device, ckpt):
     """train.loop.synthesis_preview at ljspeech full width (the seeded
     checkpoint, f32): the 4 items sample_test_batch picks of a synthetic
-    corpus of short texts, 50 Euler steps, on the GPU against the CPU with
-    the same noise. Returns the GPU run's launches."""
+    corpus of short texts, 50 Euler steps, on the GPU, and the first
+    PREVIEW_CPU_ITEMS of them on the CPU with the same noise (an item's
+    preview depends on no other item). Returns the GPU run's launches."""
     import numpy as np
     import torch
     from gradtts_tpu_torch.config import get_config
@@ -2754,16 +2776,18 @@ def phase_previews(device, ckpt):
         (1, preview_budget(len(it['x'])), cfg.data.n_feats)).astype(
             np.float32)) for it in items]
     runs = []
-    for dev in (device, torch.device('cpu')):
+    for dev, n in ((device, len(items)),
+                   (torch.device('cpu'), PREVIEW_CPU_ITEMS)):
         model = _seeded_model(cfg, ckpt, dev)
         reset_counts()
         t0 = time.perf_counter()
-        out = synthesis_preview(cfg, model, items, 50, noise=noise)
+        out = synthesis_preview(cfg, model, items[:n], 50, noise=noise[:n])
         runs.append((out, read_counts(), time.perf_counter() - t0))
     (gpu, counts, gpu_s), (cpu, cpu_counts, cpu_s) = runs
     scale = max(float(np.abs(d).max()) for _, d, _ in cpu)
     err = max(float(np.abs(g[1] - c[1]).max()) for g, c in zip(gpu, cpu))
-    line = {'phase': 'previews', 'items': len(items), 'steps': 50,
+    line = {'phase': 'previews', 'items': len(items),
+            'cpu_items': PREVIEW_CPU_ITEMS, 'steps': 50,
             'tokens': [len(it['x']) for it in items],
             'budgets': [n.shape[1] for n in noise],
             'frames': [int(g[1].shape[0]) for g in gpu],
@@ -2790,7 +2814,7 @@ def phase_previews(device, ckpt):
 
 
 GEN_ITEMS, GEN_BATCH = 20, 8       # batches of 8, 8 and a tail of 4
-GEN_CPU_ROWS = 2                   # rows of batch 0 synthesized again on the CPU
+GEN_CPU_ROWS = 1                   # rows of batch 0 synthesized again on the CPU
 
 
 def write_vector_corpus(directory, n_items, sr=16000):
@@ -3019,6 +3043,513 @@ def phase_playground(ckpt):
     return counts
 
 
+# ---- evaluate ---------------------------------------------------------------
+
+EVAL_ITEMS = 8           # the test split of the evaluate phase
+EVAL_CPU_ROWS = 2        # its shortest utterances, evaluated again on the CPU
+EVAL_MCD_RTOL = 1e-2     # MCD of the GPU's waveform against the CPU's
+EVAL_F0_FRAMES = 2       # GPE, VDE, FFE: within this many frames' share
+
+
+def _eval_line(line):
+    """(metrics, seconds) of one per-utterance line of cli.evaluate."""
+    values = {k: float(v) for k, v in re.findall(r'(\w+)=([-\d.e+naif]+)',
+                                                  line)}
+    seconds = {k[:-2]: values.pop(k) for k in list(values)
+               if k.endswith('_s')}
+    return values, seconds
+
+
+def _f0_frames(wav, fs):
+    """The YIN F0 track evaluate_pair's 'yin' backend takes of ``wav``."""
+    import numpy as np
+    from gradtts_tpu_torch.eval import yin_f0
+    return yin_f0(np.asarray(wav, np.float64), fs, 70.0, 400.0,
+                  frame_length=512, hop=256)
+
+
+def _aligned_frames(pred, ref, fs):
+    """The length of evaluate_pair's DTW path of ``pred`` against ``ref``
+    (its 'yin' mcep tracks): the frames GPE, VDE and FFE average over."""
+    import numpy as np
+    from gradtts_tpu_torch.eval import mcep_from_waveform, warping_indices
+    tracks = [mcep_from_waveform(np.asarray(w, np.float64), fs, 512, 256,
+                                 34, 0.45) for w in (pred, ref)]
+    return len(warping_indices(*tracks)[0])
+
+
+def phase_evaluate(device, card, ckpt, vocoder_ckpt):
+    """python -m gradtts_tpu_torch.cli.evaluate, in this process, on the
+    seeded full-width ljspeech checkpoint and the seeded V1 vocoder over an
+    EVAL_ITEMS-utterance test split (ljspeech texts, 22.05 kHz wavs of
+    1.5-10 s) at 50 Euler steps with --out-dir: every metric finite, the
+    MEAN: line the file's mean; the EVAL_CPU_ROWS shortest utterances
+    again on the CPU with the noise the CLI drew: the mel within SLICE_TOL
+    of its largest value, the vocoder on one mel within SLICE_TOL of the
+    waveform's largest value, MCD within EVAL_MCD_RTOL, GPE, VDE and FFE
+    within EVAL_F0_FRAMES frames' share, the voicing decisions that
+    differ counted. The waveforms' own difference is reported, not held:
+    the random-weight mels reach several hundred, and the vocoder carries
+    the mel's difference (the f32 GroupNorm statistics over a budget that
+    is mostly padding) into the waveform. Also the seconds of synthesis,
+    vocoder and host DSP per utterance and in all, and audio-s evaluated
+    a second. Returns (launches, the split's filelist, the output
+    directory)."""
+    import numpy as np
+    import torch
+    from gradtts_tpu_torch.cli.evaluate import (evaluate_utterance,
+                                                utterance_budget)
+    from gradtts_tpu_torch.cli.inference import load_vocoder
+    from gradtts_tpu_torch.config import get_config
+    from gradtts_tpu_torch.data.dataset import dataset_from_config, load_wav
+    from scipy.io import wavfile
+
+    filelist = write_corpus(os.path.join(WORK, 'eval_corpus'), EVAL_ITEMS,
+                            texts=_ljspeech_test_texts(EVAL_ITEMS))
+    out = os.path.join(WORK, 'eval_out')
+    sets = [f'data.test_filelist_path={filelist}']
+    reset_counts()
+    stdout, cli_s = _cli_main('gradtts_tpu_torch.cli.evaluate', [
+        '--checkpoint', ckpt, '--vocoder', vocoder_ckpt, '--n-utterances',
+        str(EVAL_ITEMS), '--out-dir', out, '--set', *sets])
+    counts = read_counts()
+    with open(os.path.join(out, 'metrics.json'), encoding='utf-8') as f:
+        saved = json.load(f)
+    mean_line = [ln for ln in stdout.splitlines() if ln.startswith('MEAN: ')]
+    rows = [_eval_line(ln) for ln in stdout.splitlines()
+            if re.match(r'\[\d+/\d+\] ', ln)]
+    finite = all(math.isfinite(v) for r in saved['per_utt']
+                 for v in r.values())
+
+    # the shortest utterances again on the CPU, with the CLI's noise
+    cfg = get_config('ljspeech', **dict(s.split('=') for s in sets))
+    dataset = dataset_from_config(cfg, 'test')
+    generator = torch.Generator(device=device).manual_seed(0)
+    items, audio_s = [], 0.0
+    for i in range(EVAL_ITEMS):
+        item = dataset[i]
+        budget = utterance_budget(item['y'].shape[0], cfg.data.y_buckets)
+        noise = torch.randn((1, budget, cfg.data.n_feats),
+                            generator=generator, device=device).cpu()
+        items.append((budget, i, item, noise))
+        audio_s += _wave_seconds(os.path.join(out, f'eval_{i}.wav'))
+    model = _seeded_model(cfg, ckpt, torch.device('cpu'))
+    vocoder = load_vocoder(vocoder_ckpt, None, torch.device('cpu'))
+    # the CLI's mels and waveforms are not kept: rerun them on the card
+    gpu_model = _seeded_model(cfg, ckpt, device)
+    gpu_voc = load_vocoder(vocoder_ckpt, None, device)
+    compared = []
+    for budget, i, item, noise in sorted(items, key=lambda t: t[:2])[
+            :EVAL_CPU_ROWS]:
+        ref, fs = load_wav(dataset.filepaths_and_text[i][0])
+        t0 = time.perf_counter()
+        cpu = evaluate_utterance(model, vocoder, item, ref, fs, noise)
+        cpu_s = time.perf_counter() - t0
+        gpu = evaluate_utterance(gpu_model, gpu_voc, item, ref, fs,
+                                 noise.to(device))
+        _, cli_wav = wavfile.read(os.path.join(out, f'eval_{i}.wav'))
+        cli_lsb = int(np.abs(cli_wav.astype(np.int32) - (
+            gpu.waveform * 32767).astype(np.int16)).max()) \
+            if cli_wav.shape == gpu.waveform.shape else -1
+        mel_scale = float(cpu.mel.abs().max())
+        mel_err = float((gpu.mel.cpu() - cpu.mel).abs().max()) \
+            if gpu.mel.shape == cpu.mel.shape else math.inf
+        wav_scale = float(np.abs(cpu.waveform).max())
+        wav_err = float(np.abs(gpu.waveform - cpu.waveform).max()) \
+            if gpu.waveform.shape == cpu.waveform.shape else math.inf
+        # the vocoders on one mel (the CPU's), and the CPU's vocoder on
+        # each device's mel: its own GPU-vs-CPU part, and the part that
+        # the mel's difference carries through it
+        with torch.no_grad():
+            voc_gpu = gpu_voc(cpu.mel[None].to(device))[0].clamp(
+                -1, 1).cpu().numpy()
+            voc_from_gpu_mel = vocoder(gpu.mel[None].cpu())[0].clamp(
+                -1, 1).numpy()
+        voc_err = float(np.abs(voc_gpu - cpu.waveform).max())
+        carried = float(np.abs(voc_from_gpu_mel - cpu.waveform).max()) \
+            if voc_from_gpu_mel.shape == cpu.waveform.shape else math.inf
+        flips = int(np.sum((_f0_frames(gpu.waveform, fs) > 0)
+                           != (_f0_frames(cpu.waveform, fs) > 0))) \
+            if gpu.waveform.shape == cpu.waveform.shape else -1
+        frames = max(_aligned_frames(w, ref, fs)
+                     for w in (gpu.waveform, cpu.waveform))
+        compared.append({
+            'utterance': i, 'budget': budget,
+            'frames': int(cpu.mel.shape[0]),
+            'cli_metrics_equal_rerun': saved['per_utt'][i] == gpu.metrics,
+            'cli_wav_max_lsb_from_rerun': cli_lsb,
+            'mel_max_abs_err': mel_err, 'mel_max_abs': mel_scale,
+            'wave_max_abs_err': wav_err, 'wave_max_abs': wav_scale,
+            'vocoder_same_mel_max_abs_err': voc_err,
+            'wave_err_carried_from_mel_on_cpu': carried,
+            'gpu_metrics': gpu.metrics, 'cpu_metrics': cpu.metrics,
+            'aligned_frames': frames, 'f0_tol': EVAL_F0_FRAMES / frames,
+            'voicing_flips': flips, 'cpu_s': cpu_s})
+    sec = {k: [r[1][k] for r in rows] for k in ('synthesis', 'vocoder',
+                                                'dsp')}
+    line = {'phase': 'evaluate', 'card': card, 'preset': 'ljspeech',
+            'utterances': EVAL_ITEMS, 'steps': 50, 'dtype': 'float32',
+            'dsp_backend': 'yin (pyworld absent)', 'mean': saved['mean'],
+            'per_utterance_s': sec,
+            'total_s': {k: sum(v) for k, v in sec.items()},
+            'cli_s': cli_s, 'audio_s': audio_s,
+            'audio_s_evaluated_per_s': audio_s / cli_s,
+            'compared': compared, 'launches': counts}
+    steps = 50 * EVAL_ITEMS
+    checks = [
+        (finite and len(saved['per_utt']) == EVAL_ITEMS,
+         'evaluate: metrics.json has a non-finite metric or a missing row'),
+        (len(mean_line) == 1 and json.loads(mean_line[0][len('MEAN: '):])
+         == saved['mean'], 'evaluate: the MEAN: line is not the file\'s'),
+        (len(rows) == EVAL_ITEMS and all(
+            {k: round(v, 4) for k, v in saved['per_utt'][i].items()}
+            == {k: round(v, 4) for k, v in r[0].items()}
+            for i, r in enumerate(rows)), 'evaluate: printed metrics are '
+                                          'not metrics.json\'s'),
+        (counts == {k: steps * v // STEPS
+                    for k, v in EXPECTED_COUNTS.items()},
+         f'evaluate: launches {counts}')]
+    for c in compared:
+        u = c['utterance']
+        gm, cm = c['gpu_metrics'], c['cpu_metrics']
+        checks += [
+            (c['mel_max_abs_err'] <= SLICE_TOL * c['mel_max_abs'],
+             f'evaluate {u}: mel GPU vs CPU {c["mel_max_abs_err"]}'),
+            (c['vocoder_same_mel_max_abs_err']
+             <= SLICE_TOL * c['wave_max_abs'],
+             f'evaluate {u}: the vocoder GPU vs CPU on one mel '
+             f'{c["vocoder_same_mel_max_abs_err"]}'),
+            (abs(gm['mcd'] - cm['mcd']) <= EVAL_MCD_RTOL * abs(cm['mcd']),
+             f'evaluate {u}: MCD {gm["mcd"]} vs {cm["mcd"]}'),
+            (all(abs(gm[k] - cm[k]) <= c['f0_tol'] + 1e-12
+                 for k in ('gpe', 'vde', 'ffe')),
+             f'evaluate {u}: F0 metrics {gm} vs {cm}')]
+    _check(line, checks)
+    return counts, filelist, out
+
+
+def _ljspeech_test_texts(n):
+    with open(os.path.join(REPO, 'resources', 'filelists', 'ljspeech',
+                           'test.txt'), encoding='utf-8') as f:
+        return [ln.rstrip('\n').split('|')[1] for _, ln in zip(range(n), f)]
+
+
+def _wave_seconds(path):
+    import wave
+    with wave.open(path, 'rb') as w:
+        return w.getnframes() / w.getframerate()
+
+
+def phase_evaluate_mcd(filelist, eval_out):
+    """python -m gradtts_tpu_torch.cli.evaluate_mcd as a subprocess (its
+    --nj 2 workers fork, away from this process's CUDA context) on the
+    evaluate phase's wavs against the split's wavs: utt2mcd has a finite
+    row an utterance. The tool pairs a generated wav with the reference
+    whose name its path contains, so both are linked under names that
+    no directory of a checkout holds."""
+    import shutil
+    from gradtts_tpu_torch.config import get_config
+    from gradtts_tpu_torch.data.dataset import dataset_from_config
+    cfg = get_config('ljspeech', **{'data.test_filelist_path': filelist})
+    dataset = dataset_from_config(cfg, 'test')
+    gen, gt = (os.path.join(WORK, d) for d in ('mcd_gen', 'mcd_gt'))
+    for d in (gen, gt):
+        shutil.rmtree(d, ignore_errors=True)
+        os.makedirs(d)
+    for i in range(EVAL_ITEMS):
+        ref = os.path.abspath(dataset.filepaths_and_text[i][0])
+        name = f'ljeval_utt{i:02d}'
+        os.symlink(ref, os.path.join(gt, f'{name}.wav'))
+        os.symlink(os.path.join(eval_out, f'eval_{i}.wav'),
+                   os.path.join(gen, f'{name}_gen.wav'))
+    out = os.path.join(WORK, 'mcd_out')
+    proc, secs = _run_cli('gradtts_tpu_torch.cli.evaluate_mcd', [
+        gen, gt, '--outdir', out, '--nj', '2'])
+    with open(os.path.join(out, 'utt2mcd'), encoding='utf-8') as f:
+        rows = [ln.split() for ln in f if ln.strip()]
+    values = [float(v) for _, v in rows]
+    _check({'phase': 'evaluate_mcd', 'rows': len(rows), 'mcd': values,
+            'average_line': proc.stdout.strip().splitlines()[-1],
+            'seconds': secs},
+           [(len(rows) == EVAL_ITEMS, f'evaluate_mcd: {len(rows)} rows'),
+            (all(math.isfinite(v) for v in values),
+             f'evaluate_mcd: {values}')])
+
+
+# ---- trained-weights quality gate ---------------------------------------------
+# The corpus of tests/test_e2e_quality_gate.py: each token id is a fixed
+# two-partial sine chunk of 8 mel frames at hop 64, so an utterance is
+# deterministic audio whose mel comes from the real mel front end. The
+# vocoder is a tiny random-init HiFi-GAN, one fixed map for both models.
+GATE_SR, GATE_HOP, GATE_NFFT, GATE_NMELS = 22050, 64, 256, 32
+GATE_DUR, GATE_TX, GATE_BT, GATE_VOCAB = 8, 8, 8, 12
+GATE_STEPS, GATE_LR = 800, 1e-3
+GATE_HP = dict(n_vocab=GATE_VOCAB, n_enc_channels=32, filter_channels=64,
+               filter_channels_dp=16, n_heads=2, n_enc_layers=2,
+               n_feats=GATE_NMELS, dec_dim=16)
+# the corpus of tests/test_dpm_sampler.py:85-154: each token a fixed random
+# mel frame held 4 frames
+DPM_HP = dict(GATE_HP, n_vocab=20, n_enc_layers=1, n_feats=16)
+DPM_STEPS, DPM_BUDGET = 1500, 48
+
+
+def gate_corpus():
+    """(tokens [8, 8], audio [8, 4096] f32, log-mel [8, 64, 32]) of the
+    sine-chunk corpus (seed 11)."""
+    import numpy as np
+    from gradtts_tpu_torch.data.mel import mel_spectrogram_np
+
+    def token_audio(tok):
+        f = 140.0 * 2.0 ** (tok / 8.0)
+        t = np.arange(GATE_DUR * GATE_HOP) / GATE_SR
+        return (0.5 * np.sin(2 * np.pi * f * t)
+                + 0.25 * np.sin(4 * np.pi * f * t)).astype(np.float32)
+
+    tokens = np.random.default_rng(11).integers(1, GATE_VOCAB,
+                                                (GATE_BT, GATE_TX))
+    audio = np.stack([np.concatenate([token_audio(t) for t in row])
+                      for row in tokens])
+    mel = mel_spectrogram_np(audio, n_fft=GATE_NFFT, num_mels=GATE_NMELS,
+                             sampling_rate=GATE_SR, hop_size=GATE_HOP,
+                             win_size=GATE_NFFT)
+    return tokens, audio, mel
+
+
+def codebook_corpus():
+    """(tokens [8, 8], mels [8, 32, 16], noise [8, 48, 16]) of the DPM
+    fidelity corpus (seed 7)."""
+    import numpy as np
+    rng = np.random.default_rng(7)
+    codebook = rng.standard_normal((DPM_HP['n_vocab'], 16)).astype(
+        np.float32)
+    tokens = rng.integers(1, DPM_HP['n_vocab'], (8, 8))
+    mels = np.repeat(codebook[tokens], 4, axis=1)
+    noise = rng.standard_normal((8, DPM_BUDGET, 16)).astype(np.float32)
+    return tokens, mels, noise
+
+
+def gate_batch(tokens, mel, device):
+    import torch
+    b, t_x = tokens.shape
+    return {'x': torch.as_tensor(tokens, device=device).long(),
+            'x_lengths': torch.full((b,), t_x, device=device),
+            'y': torch.as_tensor(mel, device=device),
+            'y_lengths': torch.full((b,), mel.shape[1], device=device)}
+
+
+def gate_model(hp, device, seed=0):
+    """The port's GradTTS at ``hp``, initialised by torch from ``seed``."""
+    import torch
+    from gradtts_tpu_torch.models.tts import GradTTS
+    torch.manual_seed(seed)
+    return GradTTS(**hp).to(device)
+
+
+def gate_train(model, batch, steps, seed=1000):
+    """``steps`` of ``train.state.train_step`` at lr 1e-3 on the whole mels
+    (out_size None), dropout on, the draws from a generator seeded with
+    ``seed`` on the model's device. Returns (the first step's prior loss,
+    the last one's, seconds)."""
+    import torch
+    from gradtts_tpu_torch.train.state import make_optimizer, train_step
+    device = batch['x'].device
+    optimizer = make_optimizer(model.parameters(), GATE_LR)
+    generator = torch.Generator(device=device).manual_seed(seed)
+    model.train()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        metrics = train_step(model, optimizer, batch, None,
+                             generator=generator)
+        if i == 0:
+            first = metrics['loss/prior']
+    last = float(metrics['loss/prior'])
+    seconds = time.perf_counter() - t0
+    model.eval()
+    return float(first), last, seconds
+
+
+def gate_vocoder(device):
+    """The tiny HiFi-GAN of the gate (upsampling 4 x 4 x 4 = hop 64), its
+    init drawn by torch from seed 5."""
+    import torch
+    from gradtts_tpu_torch.models.hifigan import Generator, HiFiGANConfig
+    torch.manual_seed(5)
+    return Generator(HiFiGANConfig(
+        resblock='1', upsample_rates=(4, 4, 4), upsample_kernel_sizes=(8, 8, 8),
+        upsample_initial_channel=32, resblock_kernel_sizes=(3,),
+        resblock_dilation_sizes=((1, 3),), num_mels=GATE_NMELS,
+        sampling_rate=GATE_SR, n_fft=GATE_NFFT, hop_size=GATE_HOP,
+        win_size=GATE_NFFT)).to(device).eval()
+
+
+def quality_gate(device, steps=GATE_STEPS):
+    """tests/test_e2e_quality_gate.py with the port: train the tiny model
+    ``steps`` steps on the sine-chunk corpus, synthesize (10 Euler steps,
+    the same noise) with the trained and the untrained weights, vocode
+    both and the true mels, and score. Returns (numbers, checks at the
+    JAX gate's margins, the trained model, the batch, the noise)."""
+    import copy
+    import numpy as np
+    import torch
+    from gradtts_tpu_torch.eval.metrics import evaluate_pair, mcd
+    from gradtts_tpu_torch.eval.world import sptk_mcep
+    from gradtts_tpu_torch.models.tts import synthesize
+
+    tokens, audio, mel = gate_corpus()
+    t_y = mel.shape[1]
+    batch = gate_batch(tokens, mel, device)
+    model = gate_model(GATE_HP, device)
+    untrained = copy.deepcopy(model).eval()
+    first, last, train_s = gate_train(model, batch, steps)
+    floor = 0.5 * math.log(2 * math.pi)
+
+    vocoder = gate_vocoder(device)
+    noise = torch.randn((GATE_BT, t_y, GATE_NMELS),
+                        generator=torch.Generator().manual_seed(2))
+    with torch.no_grad():
+        mel_tr, mel_un = (synthesize(m, batch['x'], batch['x_lengths'], 10,
+                                     t_y, noise=noise.to(device))
+                          .decoder_outputs for m in (model, untrained))
+        wav_gt, wav_tr, wav_un = (vocoder(m).cpu().numpy() for m in (
+            batch['y'], mel_tr, mel_un))
+    mel_tr, mel_un = mel_tr.cpu().numpy(), mel_un.cpu().numpy()
+    mae_tr = float(np.abs(mel_tr - mel).mean())
+    mae_un = float(np.abs(mel_un - mel).mean())
+    real = [evaluate_pair(wav_tr[i], audio[i], GATE_SR) for i in range(2)]
+    tr = [evaluate_pair(wav_tr[i], wav_gt[i], GATE_SR) for i in range(2)]
+    un = [evaluate_pair(wav_un[i], wav_gt[i], GATE_SR) for i in range(2)]
+
+    def world_mcd(a, b):
+        return mcd(*(sptk_mcep(w, GATE_SR, n_fft=GATE_NFFT,
+                               n_shift=GATE_HOP, mcep_dim=24,
+                               mcep_alpha=0.455, impl='numpy')
+                     for w in (a, b)))
+
+    wmcd_tr = sum(world_mcd(wav_tr[i], wav_gt[i]) for i in range(2)) / 2
+    wmcd_un = sum(world_mcd(wav_un[i], wav_gt[i]) for i in range(2)) / 2
+    line = {'device': str(device), 'steps': steps, 'train_s': train_s,
+            'steps_per_s': steps / train_s, 'prior_first': first,
+            'prior_last': last, 'prior_floor': floor,
+            'mae_trained': mae_tr, 'mae_untrained': mae_un,
+            'mcd_trained': sum(m['mcd'] for m in tr) / 2,
+            'mcd_untrained': sum(m['mcd'] for m in un) / 2,
+            'ffe_trained': sum(m['ffe'] for m in tr) / 2,
+            'ffe_untrained': sum(m['ffe'] for m in un) / 2,
+            'world_mcd_trained': wmcd_tr, 'world_mcd_untrained': wmcd_un,
+            'against_real_audio': real}
+    checks = [
+        (last - floor < 0.3 * (first - floor),
+         f'quality_gate: prior loss {first} -> {last} (floor {floor})'),
+        (mae_tr < 0.3 * mae_un, f'quality_gate: mel MAE {mae_tr} trained, '
+                                f'{mae_un} untrained'),
+        (all(set(m) == {'log_f0_rmse', 'mcd', 'gpe', 'vde', 'ffe'}
+             and all(math.isfinite(v) for v in m.values()) for m in real),
+         f'quality_gate: metrics against real audio {real}'),
+        (line['mcd_trained'] < 0.5 * line['mcd_untrained'],
+         f'quality_gate: MCD {line["mcd_trained"]} trained, '
+         f'{line["mcd_untrained"]} untrained'),
+        (line['ffe_trained'] < line['ffe_untrained'] - 0.2,
+         f'quality_gate: FFE {line["ffe_trained"]} trained, '
+         f'{line["ffe_untrained"]} untrained'),
+        (math.isfinite(wmcd_tr) and math.isfinite(wmcd_un)
+         and wmcd_tr < 0.5 * wmcd_un,
+         f'quality_gate: worldnp MCD {wmcd_tr} trained, {wmcd_un} '
+         'untrained')]
+    return line, checks, model, batch, noise
+
+
+def sampler_errors(model, x, x_lengths, noise):
+    """Mean |mel - truth| of DPM-8, DPM-10, Euler-10 and Euler-50 against a
+    400-step Euler truth, on ``model`` with the same noise [B, budget, F]."""
+    import torch
+    from gradtts_tpu_torch.models.tts import synthesize
+    noise = noise.to(x.device)
+
+    def synth(n, sampler):
+        return synthesize(model, x, x_lengths, n, noise.shape[1],
+                          noise=noise, sampler=sampler).decoder_outputs
+
+    with torch.no_grad():
+        truth = synth(400, 'euler')
+        return {name: float((synth(n, sampler) - truth).abs().mean())
+                for name, n, sampler in (('d8', 8, 'dpm'), ('d10', 10, 'dpm'),
+                                         ('e10', 10, 'euler'),
+                                         ('e50', 50, 'euler'))}
+
+
+def dpm_fidelity(device, steps=DPM_STEPS):
+    """tests/test_dpm_sampler.py::test_dpm_fidelity_on_trained_weights with
+    the port: train on the codebook corpus, then the samplers against a
+    400-step Euler truth. Returns (numbers, checks at the JAX test's
+    margins)."""
+    import torch
+    tokens, mels, noise = codebook_corpus()
+    batch = gate_batch(tokens, mels, device)
+    model = gate_model(DPM_HP, device)
+    first, last, train_s = gate_train(model, batch, steps)
+    floor = 0.5 * math.log(2 * math.pi)
+    err = sampler_errors(model, batch['x'], batch['x_lengths'],
+                         torch.from_numpy(noise))
+    line = {'device': str(device), 'steps': steps, 'train_s': train_s,
+            'prior_first': first, 'prior_last': last, **err}
+    checks = [
+        (last - floor < 0.3 * (first - floor),
+         f'dpm_fidelity: prior loss {first} -> {last} (floor {floor})'),
+        (err['d8'] < 0.8 * err['e10'], f'dpm_fidelity: {err}'),
+        (err['d10'] < 0.6 * err['e10'], f'dpm_fidelity: {err}'),
+        (err['e50'] < err['e10'], f'dpm_fidelity: {err}')]
+    return line, checks
+
+
+# launches of the gate: every train step one MAS and the U-Net forward and
+# backward, then two 10-step syntheses of B 8
+GATE_COUNTS = {k: GATE_STEPS * v + 2 * EXPECTED_COUNTS[k]
+               for k, v in TRAIN_COUNTS.items()}
+
+
+def phase_quality_gate(device, card):
+    """The trained-weights gate on the card: one train step of the gate's
+    model (compute_loss + backward, f32) on the GPU against the CPU at
+    train_slice's limits, then ``quality_gate`` (GATE_STEPS steps at the
+    JAX gate's margins, its launches counted), then DPM-8, DPM-10,
+    Euler-10 and Euler-50 against a 400-step Euler truth on the trained
+    weights (e50 < e10 and d10 < e10; the 0.8 and 0.6 margins belong to
+    the codebook corpus of the cuda test). Returns the launches."""
+    import numpy as np
+    import torch
+    tokens, _, mel = gate_corpus()
+    sd = gate_model(GATE_HP, torch.device('cpu')).state_dict()
+
+    def make_model(dev):
+        from gradtts_tpu_torch.models.tts import GradTTS
+        model = GradTTS(**GATE_HP)
+        model.load_state_dict(sd, strict=True)
+        return model.to(dev).eval()
+
+    rng = np.random.default_rng(13)
+    batch = gate_batch(tokens, mel, torch.device('cpu'))
+    entry, checks = _gpu_vs_cpu_loss(
+        make_model, device, (batch['x'], batch['x_lengths'], batch['y'],
+                             batch['y_lengths']), 'quality_gate step',
+        out_size=None, t=torch.tensor(rng.uniform(0.05, 0.95, GATE_BT),
+                                      dtype=torch.float32),
+        z=torch.from_numpy(rng.standard_normal(mel.shape).astype(
+            np.float32)))
+    _check({'phase': 'quality_gate_step', **entry}, checks)
+
+    reset_counts()
+    line, checks, model, batch, noise = quality_gate(device)
+    counts = read_counts()
+    err = sampler_errors(model, batch['x'], batch['x_lengths'], noise)
+    _check({'phase': 'quality_gate', 'card': card, **line, 'samplers': err,
+            'launches': counts},
+           checks + [(err['e50'] < err['e10'] and err['d10'] < err['e10'],
+                      f'quality_gate: samplers {err}'),
+                     (counts == GATE_COUNTS,
+                      f'quality_gate: launches {counts}')])
+    return counts
+
+
 HAND_KERNELS = ('gn_stats_kernel', 'gn_apply_kernel', 'la_stats_kernel',
                 'la_apply_kernel', 'la_bwd1_kernel', 'la_bwd2_kernel',
                 'la_bwd2_dx_kernel', 'la_bwd2_dw_kernel',
@@ -3165,6 +3696,12 @@ def main():
         counts['inference_zero'] = timed(phase_inference_zero, device,
                                          vocoder_ckpt)
         counts['playground'] = timed(phase_playground, ckpt)
+        # objective evaluation and the trained-weights gate, each counted
+        # from 0 just before it
+        counts['evaluate'], eval_list, eval_out = timed(
+            phase_evaluate, device, card, ckpt, vocoder_ckpt)
+        timed(phase_evaluate_mcd, eval_list, eval_out)
+        counts['quality_gate'] = timed(phase_quality_gate, device, card)
     except SmokeFailure as e:
         print(f'chip_smoke: FAILED: {e}', file=sys.stderr, flush=True)
         return 1

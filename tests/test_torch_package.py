@@ -35,10 +35,14 @@ import pkgutil, importlib, importlib.abc, sys
 
 class Absent(importlib.abc.MetaPathFinder):
     # the GPU machine lacks the orbax reader's tensorstore, the plots'
-    # matplotlib and tqdm: here they cannot be imported either
+    # matplotlib, tqdm, the WORLD/SPTK libraries and speechbrain: here
+    # they cannot be imported either
     def find_spec(self, name, path, target=None):
-        if name.split('.')[0] in ('tensorstore', 'matplotlib', 'tqdm'):
+        if name.split('.')[0] in ABSENT:
             raise ImportError(f'{name} is absent')
+
+ABSENT = ('tensorstore', 'matplotlib', 'tqdm', 'pyworld', 'pysptk',
+          'speechbrain')
 
 sys.meta_path.insert(0, Absent())
 import gradtts_tpu_torch
@@ -48,21 +52,34 @@ for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'gradtts_tpu',
-                                    'tensorstore', 'matplotlib', 'tqdm'))
+                                    *ABSENT))
 print(len(names), 'modules;', 'forbidden:', bad)
 assert not bad
 for needed in ('likelihood.ode', 'likelihood.sde', 'nbest.scoring',
                'nbest.sweep', 'cli.nbest', 'models.hifigan',
                'data.dataset', 'utils.convert', 'utils.io', 'utils.plotting',
-               'cli.generate', 'cli.inference_zero', 'cli.playground'):
+               'cli.generate', 'cli.inference_zero', 'cli.playground',
+               'eval', 'eval.dsp', 'eval.dtw', 'eval.f0', 'eval.mcep',
+               'eval.metrics', 'eval.worldnp', 'eval.world', 'eval.mcd_tool',
+               'cli.evaluate', 'cli.evaluate_mcd', 'cli.prepare', 'data.sph',
+               'data.corpus'):
     assert 'gradtts_tpu_torch.' + needed in names, needed
-assert len(names) >= 40
+assert len(names) >= 54
+# the WORLD backend runs without pyworld and pysptk: the numpy one
+from gradtts_tpu_torch.eval import evaluate_pair, world_available
+import numpy as np
+assert not world_available()
+t = np.arange(8000) / 16000
+x = 0.3 * np.sin(2 * np.pi * 200 * t)
+assert evaluate_pair(x, x, 16000, backend='world')['mcd'] == 0.0
 """
 
 
 def test_imports_neither_jax_nor_the_jax_package():
-    """Nor tensorstore, matplotlib or tqdm, which the GPU machine lacks:
-    every module, every CLI included, imports without them."""
+    """Nor tensorstore, matplotlib, tqdm, pyworld, pysptk or speechbrain,
+    which the GPU machine lacks: every module, every CLI and the eval
+    package included, imports without them, and the WORLD metrics run on
+    their numpy implementations."""
     env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}
     proc = subprocess.run([sys.executable, '-c', _IMPORT_ALL], cwd=REPO,
                           env=env, capture_output=True, text=True,
@@ -80,7 +97,7 @@ def test_entry_point_without_gpu_raises(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize('cli', ['generate', 'inference_zero',
-                                 'playground'])
+                                 'playground', 'evaluate'])
 def test_new_entry_points_without_gpu_raise(cli, monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     emb = tmp_path / 'vec.npy'
@@ -89,7 +106,9 @@ def test_new_entry_points_without_gpu_raise(cli, monkeypatch, tmp_path):
             'inference_zero': ['-f', 'unused.txt', '-c', 'unused.pt',
                                '--spk-emb', str(emb)],
             'playground': ['--checkpoint', 'unused.pt', '--filelist',
-                           'unused.txt']}[cli]
+                           'unused.txt'],
+            'evaluate': ['--checkpoint', 'unused.pt', '--vocoder',
+                         'unused.pt']}[cli]
     main = importlib.import_module(f'gradtts_tpu_torch.cli.{cli}').main
     with pytest.raises(RuntimeError, match='no CUDA device'):
         main(argv)
