@@ -54,6 +54,8 @@ Phases, each printing one JSON line:
               (wavs read back), and -s 3 on the tedlium-spk model;
   8. synth    bf16 synthesis at B 8, Tx 128, Ty 768, 10 Euler steps: launch
               counts per synthesis, audio-s/s and the kernels' device share;
+     profiling  utils.profiling.trace over one such synthesis: the trace
+              file is written, not empty, and names K1-K3's kernels;
      dpm8     the same with 8 DPM steps; waveform: 50 Euler steps and the
               vocoder, then the vocoder alone in f32 and bf16 (x real time,
               device ms by family); multispeaker: libri-tts, 10 steps;
@@ -96,7 +98,7 @@ Phases, each printing one JSON line:
               both ways (peak memory, wall and device time, launches), and
               cli.train --set train.remat_estimator=True --no-previews;
  17. previews  the trainer's synthesis_preview (4 items of a corpus of
-              short texts, 50 Euler steps, f32) on the GPU, the first two
+              short texts, 50 Euler steps, f32) on the GPU, the first
               against the CPU with the same noise;
  18. generate  python -m gradtts_tpu_torch.cli.generate on a synthetic
               tedlium split (the first 20 texts of its test filelist, wavs
@@ -109,11 +111,20 @@ Phases, each printing one JSON line:
               synthesize called with the same vector, bit for bit;
  20. playground  python -m gradtts_tpu_torch.cli.playground: 3 utterances
               of the train corpus, 10 Euler steps, 3 probes each.
+     ddp      data-parallel training of the train cell: torchrun
+              --nproc-per-node 1 cli.train --mesh-data 1 (NCCL) against
+              the train phase's plain run; the DDP step in this process
+              (one NCCL rank) against the plain step, both timed; two
+              ranks on the one card over gloo, a step of the global B 16
+              against this process's (bf16 losses; f32 losses, gradients
+              and parameters), the ranks' parameters bit-equal;
+     ddp_generate  cli.generate --mesh-data 2 (two ranks on the card over
+              gloo) against the generate phase's --mesh-data 1 mels.
  21. evaluate  python -m gradtts_tpu_torch.cli.evaluate on the seeded
               ljspeech checkpoint and V1 vocoder over an 8-utterance test
               split (ljspeech test texts, 22.05 kHz wavs of 1.5-10 s), 50
               Euler steps, f32: metrics finite, the MEAN: line the file's,
-              the two shortest utterances against the CPU with the same
+              the shortest utterance against the CPU with the same
               noise (mel, the vocoder on one mel, MCD, GPE/VDE/FFE,
               voicing flips counted; the waveforms' difference reported),
               seconds of synthesis, vocoder and host DSP;
@@ -129,10 +140,13 @@ Phases, each printing one JSON line:
               Euler-10/50 against a 400-step Euler truth on the trained
               weights.
 Each timed path (synth, dpm8, waveform, multispeaker, train,
-vocoder_train, train_spk, likelihood) and each path of phases 15-23 sets
-the launch counts to 0 just before its main run and reads them just after
-(the GAN step launches no hand kernel); phases 15-21 run their CLIs in
-this process, so that their launches are counted. Then each phase's
+vocoder_train, train_spk, likelihood) and each path of phases 15-23, ddp
+and ddp_generate sets the launch counts to 0 just before its main run and
+reads them just after (the GAN step launches no hand kernel; a rank of
+ddp or ddp_generate counts its own); phases 15-21 run their CLIs in this
+process, so that their launches are counted. Wall times are the median of
+utils.profiling.time_jitted, audio-s/s its Throughput, and the device
+share a utils.profiling.trace capture. Then each phase's
 seconds ({"phase_seconds": {...}}), the total seconds, the card's name
 and power limit (nvidia-smi), the {"kernels": [...]} line, and last
 {"ok": true, "device": {...}}. Any failure exits non-zero before the last line; so does a machine
@@ -144,7 +158,6 @@ import json
 import math
 import os
 import re
-import statistics
 import subprocess
 import sys
 import time
@@ -273,6 +286,26 @@ def bound(nbytes, flops, dtype_name):
     t_bytes, t_ops = nbytes / HBM_BPS, flops / PEAK_FLOPS[dtype_name]
     return max(t_bytes, t_ops) * 1e3, 'bytes' if t_bytes >= t_ops else \
         'operations'
+
+
+def median_call(run, iters, warmup=1):
+    """``utils.profiling.time_jitted`` of ``run`` (``warmup`` calls, then
+    ``iters`` timed ones, each ended when the card has finished its
+    output): (the median seconds a call, its median/mean/min figures)."""
+    from gradtts_tpu_torch.utils.profiling import time_jitted
+    stats = time_jitted(run, iters=iters, warmup=warmup)
+    del stats['last_output']
+    return stats['median_s'], stats
+
+
+def throughput(frames, items, seconds, sr=SR, hop=HOP):
+    """``utils.profiling.Throughput`` of ``frames`` mel frames and ``items``
+    utterances in ``seconds`` (a median call)."""
+    from gradtts_tpu_torch.utils.profiling import Throughput
+    tp = Throughput(sample_rate=sr, hop_length=hop)
+    tp.add(frames, items)
+    tp.elapsed = seconds
+    return tp
 
 
 # ---- build ------------------------------------------------------------------
@@ -1049,6 +1082,10 @@ def phase_cli(ckpt, spk_ckpt, vocoder_ckpt):
 
 
 def phase_synth(device, card):
+    """bf16 synthesis at bench.py's shape: launches per synthesis (counts
+    set to 0 just before the main path's run, read just after), the median
+    of 5 calls (``time_jitted``), audio-s/s (``Throughput``) and the device
+    share. Returns (the launches, the synthesis as a function)."""
     import numpy as np
     import torch
     from gradtts_tpu_torch.config import get_config
@@ -1070,7 +1107,7 @@ def phase_synth(device, card):
         torch.cuda.synchronize()
         return res
 
-    run()                                           # warm-up
+    per_call, timing = median_call(run, 5)          # a warm-up, 5 timed
     reset_counts()
     res = run()                                     # the main path's run
     counts = read_counts()
@@ -1079,22 +1116,48 @@ def phase_synth(device, card):
             f'{EXPECTED_COUNTS}')
     require(bool(torch.isfinite(res.decoder_outputs).all()),
             'synth: mel not finite')
-    times = []
-    for _ in range(5):
-        t0 = time.perf_counter()
-        run()
-        times.append(time.perf_counter() - t0)
-    per_call = statistics.median(times)
-    audio_s = B * TY * HOP / SR
-
+    tp = throughput(B * TY, B, per_call)
     share = _device_share(run, per_call * 1e3, 'synth')
     emit({'phase': 'synth', 'card': card, 'batch': B, 'tx': TX, 'ty': TY,
           'steps': STEPS,
           'dtype': 'bfloat16', 'seconds_per_call': per_call,
-          'seconds_all': times, 'audio_s_per_s': audio_s / per_call,
-          'launches_per_synthesis': counts,
+          'timing': timing, 'audio_s_per_s': tp.audio_sec_per_sec,
+          'rtf': tp.rtf, 'launches_per_synthesis': counts,
           'y_lengths': res.y_lengths.tolist(), **share})
-    return counts
+    return counts, run
+
+
+# ---- profiling ----------------------------------------------------------
+
+
+def phase_profiling(run, card):
+    """``utils.profiling.trace`` over one synthesis of phase synth (bf16,
+    B 8, Tx 128, Ty 768, 10 Euler steps): the trace file is written and
+    not empty, and its device events name K1's and K2/K3's kernels."""
+    import tempfile
+    from torch.autograd import DeviceType
+    from gradtts_tpu_torch.utils.profiling import trace
+
+    with tempfile.TemporaryDirectory(dir=WORK) as logdir:
+        t0 = time.perf_counter()
+        with trace(logdir, create_perfetto_link=True) as prof:
+            run()
+        trace_s = time.perf_counter() - t0
+        files = os.listdir(logdir)
+        sizes = [os.path.getsize(os.path.join(logdir, f)) for f in files]
+    device = [e.name for e in prof.events()
+              if e.device_type == DeviceType.CUDA]
+    seen = {k: sum(k in n for n in device) for k in (
+        'gn_stats_kernel', 'gn_apply_kernel', 'la_stats_kernel',
+        'la_apply_kernel')}
+    line = {'phase': 'profiling', 'card': card, 'trace_files': files,
+            'trace_bytes': sizes, 'trace_seconds': trace_s,
+            'events': len(prof.events()), 'device_events': len(device),
+            'hand_kernel_events': seen}
+    _check(line, [
+        (len(files) == 1 and files[0].endswith('.pt.trace.json')
+         and sizes[0] > 0, f'profiling: trace files {files} {sizes}'),
+        (all(seen.values()), f'profiling: kernels in the trace {seen}')])
 
 
 # ---- train_slice ------------------------------------------------------------
@@ -1195,7 +1258,7 @@ def phase_train_slice(device, ckpt):
 
 # ---- train ------------------------------------------------------------------
 
-CORPUS_ITEMS, TRAIN_STEPS = 64, 12
+CORPUS_ITEMS, TRAIN_STEPS = 64, 2
 
 
 def write_corpus(directory, n_items, texts=None, sr=SR,
@@ -1277,8 +1340,8 @@ def phase_train(device, card):
     proc, train_s = _run_cli('gradtts_tpu_torch.cli.train',
                              common + ['--max-steps', str(TRAIN_STEPS)])
     route = _input_pipeline(proc, 'train')
-    _, resume_s = _run_cli('gradtts_tpu_torch.cli.train',
-                           common + ['--max-steps', '1'])
+    _, resume_s = _cli_main('gradtts_tpu_torch.cli.train',
+                            common + ['--max-steps', '1'])
     epochs = _train_log(log_dir, 'train')
     ckpt = os.path.join(log_dir, 'ckpt', f'step_{TRAIN_STEPS + 1:08d}.pt')
     require(os.path.exists(ckpt), 'train: the resumed run wrote no '
@@ -1300,6 +1363,27 @@ def phase_train(device, card):
         'inference_seconds': infer_s, 'epochs': epochs})
 
 
+def train_cell(filelist, device, preset='ljspeech', compute='bfloat16'):
+    """The train cell's config, model and batch: ``preset`` on the corpus
+    ``filelist``, the model drawn from the config's seed with ``compute``
+    (bf16 in the cell) on ``device``, and the collated batch of the
+    corpus's first TRAIN_B utterances (host numpy)."""
+    import torch
+    from gradtts_tpu_torch.config import get_config
+    from gradtts_tpu_torch.data.dataset import (BatchCollate,
+                                                dataset_from_config)
+    from gradtts_tpu_torch.models.tts import GradTTS, set_compute_dtype
+
+    cfg = get_config(preset, **{'data.train_filelist_path': filelist})
+    dataset = dataset_from_config(cfg)
+    batch = BatchCollate(cfg.data.x_buckets, cfg.data.y_buckets)(
+        [dataset[i] for i in range(TRAIN_B)])
+    torch.manual_seed(cfg.train.seed)
+    model = GradTTS.from_config(cfg).to(device).train()
+    set_compute_dtype(model, getattr(torch, compute))
+    return cfg, model, batch
+
+
 def phase_train_step(device, card, filelist=None, cli=None,
                      preset='ljspeech', phase='train'):
     """The train step of ``preset`` in-process on one collated batch of the
@@ -1308,23 +1392,13 @@ def phase_train_step(device, card, filelist=None, cli=None,
     share. Emits the ``phase`` line (with the CLI run's figures ``cli``,
     where given). Returns (launches per step, utterances/s)."""
     import torch
-    from gradtts_tpu_torch.config import get_config
-    from gradtts_tpu_torch.data.dataset import (BatchCollate,
-                                                dataset_from_config)
-    from gradtts_tpu_torch.models.tts import GradTTS, set_compute_dtype
     from gradtts_tpu_torch.train.loop import batch_to
     from gradtts_tpu_torch.train.state import make_optimizer, train_step
 
     if filelist is None:
         filelist = write_corpus(os.path.join(WORK, 'corpus'), TRAIN_B)
-    cfg = get_config(preset, **{'data.train_filelist_path': filelist})
-    dataset = dataset_from_config(cfg)
-    batch = BatchCollate(cfg.data.x_buckets, cfg.data.y_buckets)(
-        [dataset[i] for i in range(TRAIN_B)])
+    cfg, model, batch = train_cell(filelist, device, preset)
     batch = batch_to(batch, device)
-    torch.manual_seed(cfg.train.seed)
-    model = GradTTS.from_config(cfg).to(device).train()
-    set_compute_dtype(model, torch.bfloat16)
     optimizer = make_optimizer(model.parameters(), cfg.train.learning_rate)
     gen = torch.Generator(device=device).manual_seed(0)
 
@@ -1334,8 +1408,9 @@ def phase_train_step(device, card, filelist=None, cli=None,
         torch.cuda.synchronize()
         return metrics
 
-    for _ in range(3):                              # warm-up
-        run()
+    torch.cuda.reset_peak_memory_stats(device)
+    per_step, timing = median_call(run, 10, warmup=3)
+    peak = torch.cuda.max_memory_allocated(device)
     reset_counts()
     metrics = run()                                 # the main path's run
     counts = read_counts()
@@ -1345,27 +1420,20 @@ def phase_train_step(device, card, filelist=None, cli=None,
             f'{phase}: step metrics not finite: {metrics}')
     require(all(p.dtype == torch.float32 for p in model.parameters()),
             f'{phase}: a parameter left f32')
-    torch.cuda.reset_peak_memory_stats(device)
-    times = []
-    for _ in range(10):
-        t0 = time.perf_counter()
-        run()
-        times.append(time.perf_counter() - t0)
-    peak = torch.cuda.max_memory_allocated(device)
-    per_step = statistics.median(times)
     share = _device_share(run, per_step * 1e3, phase)
-    audio_s = TRAIN_B * cfg.out_size * cfg.data.hop_length \
-        / cfg.data.sample_rate
+    tp = throughput(TRAIN_B * cfg.out_size, TRAIN_B, per_step,
+                    cfg.data.sample_rate, cfg.data.hop_length)
+    audio_s = tp.audio_seconds
     emit({'phase': phase, 'card': card, 'preset': preset, 'batch': TRAIN_B,
           'crop': cfg.out_size, 'x_shape': list(batch['x'].shape),
           'y_shape': list(batch['y'].shape),
           'speakers': batch['spk'].tolist() if 'spk' in batch else None,
           'dtype': 'bfloat16 compute, float32 parameters',
           **(cli or {}), 'seconds_per_step': per_step,
-          'seconds_all': times, 'steps_per_s': 1 / per_step,
+          'timing': timing, 'steps_per_s': 1 / per_step,
           'utterances_per_s': TRAIN_B / per_step,
           'audio_s_per_step': audio_s,
-          'audio_s_trained_per_s': audio_s / per_step,
+          'audio_s_trained_per_s': tp.audio_sec_per_sec,
           'launches_per_step': counts, 'peak_memory_gib': peak / 2 ** 30,
           'metrics': {k: float(v) for k, v in metrics.items()}, **share})
     return counts, TRAIN_B / per_step
@@ -1473,7 +1541,7 @@ def phase_nbest_cli(ckpt, spk_ckpt):
     """cli.nbest score, compile and rescore with --preset ljspeech on
     22.05 kHz wavs; then score alone with the CLI's default preset
     (tedlium-spk) on a 16 kHz speaker filelist (``path|text|speaker``),
-    its shards compiled in-process."""
+    its shards compiled; every CLI in this process."""
     _nbest_cli(ckpt, 'nbest', write_corpus, ['--preset', 'ljspeech'])
     _nbest_cli(spk_ckpt, 'nbest_spk', write_speaker_corpus, [],
                score_only=True)
@@ -1499,11 +1567,10 @@ def _nbest_cli(ckpt, name, corpus, preset_args, score_only=False):
         for fname in os.listdir(out_dir):
             os.unlink(os.path.join(out_dir, fname))
     module = 'gradtts_tpu_torch.cli.nbest'
-    proc, score_s = _run_cli(module, [
+    _, score_s = _cli_main(module, [
         'score', '--n-best', pkl, '--checkpoint', ckpt, '--filelist',
         filelist, '--out-dir', out_dir, *preset_args, '-N', str(NBEST_N),
         '--n-euler', str(STEPS)])
-    print(proc.stdout, end='')
     line = {'phase': 'nbest_cli', 'preset': preset_args[1:] or 'default',
             'utterances': NBEST_UTTS, 'N': NBEST_N, 'euler_steps': STEPS,
             'score_seconds': score_s}
@@ -1554,7 +1621,7 @@ def phase_likelihood(device, card, ckpt):
         torch.cuda.synchronize()
         return res
 
-    run()                                           # warm-up
+    per_call, timing = median_call(run, 5)          # a warm-up, 5 timed
     reset_counts()
     res = run()                                     # the main path's run
     counts = read_counts()
@@ -1563,18 +1630,12 @@ def phase_likelihood(device, card, ckpt):
             f'{likelihood_counts(LIK_STEPS)}')
     require(bool(torch.isfinite(res.score).all()),
             'likelihood: score not finite')
-    times = []
-    for _ in range(5):
-        t0 = time.perf_counter()
-        run()
-        times.append(time.perf_counter() - t0)
-    per_call = statistics.median(times)
     share = _device_share(run, per_call * 1e3, 'likelihood')
     emit({'phase': 'likelihood', 'card': card, 'batch': LIK_B,
           'k1_tangent_per_call': _k1_tangent_share(device),
           'tx': LIK_TX, 'ty': LIK_TY, 'euler_steps': LIK_STEPS,
           'dtype': 'bfloat16 compute, float32 ODE state',
-          'seconds_per_call': per_call, 'seconds_all': times,
+          'seconds_per_call': per_call, 'timing': timing,
           'hypotheses_per_s': LIK_B / per_call,
           'launches_per_call': counts, 'scores': res.score.tolist(), **share})
     return counts
@@ -1812,7 +1873,8 @@ def phase_vocoder_slice(device):
 def _timed_synthesis(device, card, phase, preset, steps, **kw):
     """bf16 synthesis at B 8, Tx 128, Ty 768 of the seeded ``preset``:
     launches per call (counts set to 0 just before the main path's run,
-    read just after), the median of 5 calls, audio-s/s at the preset's
+    read just after), the median of 5 calls (``time_jitted``), audio-s/s
+    (``Throughput``) at the preset's
     sample rate and the device share. Returns (line, run, model, counts)."""
     import numpy as np
     import torch
@@ -1837,7 +1899,7 @@ def _timed_synthesis(device, card, phase, preset, steps, **kw):
         torch.cuda.synchronize()
         return res
 
-    run()                                           # warm-up
+    per_call, timing = median_call(run, 5)          # a warm-up, 5 timed
     reset_counts()
     res = run()                                     # the main path's run
     counts = read_counts()
@@ -1846,18 +1908,13 @@ def _timed_synthesis(device, card, phase, preset, steps, **kw):
                             f'expected {want}')
     require(bool(torch.isfinite(res.decoder_outputs).all()),
             f'{phase}: mel not finite')
-    times = []
-    for _ in range(5):
-        t0 = time.perf_counter()
-        run()
-        times.append(time.perf_counter() - t0)
-    per_call = statistics.median(times)
-    audio_s = B * TY * cfg.data.hop_length / cfg.data.sample_rate
+    tp = throughput(B * TY, B, per_call, cfg.data.sample_rate,
+                    cfg.data.hop_length)
     line = {'phase': phase, 'card': card, 'preset': preset, 'batch': B,
             'tx': TX, 'ty': TY, 'steps': steps, 'dtype': 'bfloat16',
             'sample_rate': cfg.data.sample_rate,
-            'seconds_per_call': per_call, 'seconds_all': times,
-            'audio_s_per_s': audio_s / per_call,
+            'seconds_per_call': per_call, 'timing': timing,
+            'audio_s_per_s': tp.audio_sec_per_sec,
             'launches_per_synthesis': counts}
     return line, run, per_call, counts
 
@@ -1909,15 +1966,11 @@ def phase_waveform(device, card):
                                      'kernel')
     require(tuple(wav.shape) == (B, TY * 256)
             and bool(torch.isfinite(wav).all()), 'waveform: malformed wave')
-    times = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        run()
-        times.append(time.perf_counter() - t0)
-    per_call = statistics.median(times)
-    audio_s = B * TY * HOP / SR
-    line.update(seconds_per_call=per_call, seconds_all=times,
-                audio_s_per_s=audio_s / per_call,
+    per_call, timing = median_call(run, 3)
+    tp = throughput(B * TY, B, per_call)
+    audio_s = tp.audio_seconds
+    line.update(seconds_per_call=per_call, timing=timing,
+                audio_s_per_s=tp.audio_sec_per_sec,
                 mel_seconds_per_call=mel_s)
     mel = torch.from_numpy((np.random.default_rng(0).standard_normal(
         (B, TY, cfg.data.n_feats)) * 2.0 - 5.0).astype(np.float32)).to(device)
@@ -1931,13 +1984,7 @@ def phase_waveform(device, card):
             torch.cuda.synchronize()
             return out
 
-        run_voc()
-        vt = []
-        for _ in range(5):
-            t0 = time.perf_counter()
-            run_voc()
-            vt.append(time.perf_counter() - t0)
-        v_s = statistics.median(vt)
+        v_s, _ = median_call(run_voc, 5)
         share = _device_share(run_voc, v_s * 1e3, 'waveform vocoder')
         line['vocoder_alone'][str(dtype).split('.')[1]] = {
             'seconds_per_call': v_s, 'x_real_time': audio_s / v_s,
@@ -2394,8 +2441,8 @@ def phase_vocoder_train(device, card, ckpt):
               '--epochs', '1']
     _, train_s = _run_cli('gradtts_tpu_torch.cli.train_vocoder',
                           common + ['--max-steps', str(VOC_CLI_STEPS)])
-    _, resume_s = _run_cli('gradtts_tpu_torch.cli.train_vocoder',
-                           common + ['--max-steps', '1'])
+    _, resume_s = _cli_main('gradtts_tpu_torch.cli.train_vocoder',
+                            common + ['--max-steps', '1'])
     epochs = _train_log(log_dir, 'vocoder_train')
     vckpt = os.path.join(log_dir, 'ckpt', f'step_{VOC_CLI_STEPS + 1:08d}.pt')
     require(os.path.exists(vckpt), 'vocoder_train: the resumed run wrote no '
@@ -2433,8 +2480,8 @@ def phase_vocoder_train(device, card, ckpt):
     for tf32 in (False, True):
         torch.backends.cuda.matmul.allow_tf32 = tf32
         torch.backends.cudnn.allow_tf32 = tf32
-        for _ in range(2):                          # warm-up
-            run()
+        torch.cuda.reset_peak_memory_stats(device)
+        per_step, timing = median_call(run, 10, warmup=2)
         reset_counts()
         metrics = run()                             # the main path's run
         counts = read_counts()
@@ -2442,24 +2489,19 @@ def phase_vocoder_train(device, card, ckpt):
                                           f'launched a hand kernel {counts}')
         require(all(np.isfinite(float(v)) for v in metrics.values()),
                 f'vocoder_train: losses not finite {metrics}')
-        torch.cuda.reset_peak_memory_stats(device)
-        times = []
-        for _ in range(10):
-            t0 = time.perf_counter()
-            run()
-            times.append(time.perf_counter() - t0)
-        per_step = statistics.median(times)
         # steps queued back to back: the device's own time a step (the
         # profiler's sum of kernel times is reported beside it)
         dev_ms = device_ms(lambda: step(state, batch), reps=5)
         share = _device_share(run, per_step * 1e3, 'vocoder_train')
         line['tf32_on' if tf32 else 'tf32_off'] = {
-            'seconds_per_step': per_step, 'seconds_all': times,
+            'seconds_per_step': per_step, 'timing': timing,
             'device_ms_per_step': dev_ms,
             'device_idle_share_queued': max(0.0, 1 - dev_ms / (per_step
                                                               * 1e3)),
             'steps_per_s': 1 / per_step,
-            'audio_s_trained_per_s': audio_s / per_step,
+            'audio_s_trained_per_s': throughput(
+                VOC_B * VOC_SEGMENT // HOP, VOC_B,
+                per_step).audio_sec_per_sec,
             'peak_memory_gib': torch.cuda.max_memory_allocated(device)
             / 2 ** 30,
             'metrics': {k: float(v) for k, v in metrics.items()},
@@ -2699,23 +2741,17 @@ def phase_remat(device, card):
             torch.cuda.synchronize()
             return metrics
 
-        for _ in range(3):                          # warm-up
-            run()
+        torch.cuda.reset_peak_memory_stats(device)
+        per_step, timing = median_call(run, 10, warmup=3)
+        peak = torch.cuda.max_memory_allocated(device)
         reset_counts()
         metrics = run()                             # the main path's run
         counts[way] = read_counts()
-        torch.cuda.reset_peak_memory_stats(device)
-        times = []
-        for _ in range(10):
-            t0 = time.perf_counter()
-            run()
-            times.append(time.perf_counter() - t0)
-        per_step = statistics.median(times)
         share = _device_share(run, per_step * 1e3, f'remat {way}')
         line[way] = {
-            'seconds_per_step': per_step, 'seconds_all': times,
-            'peak_memory_gib': torch.cuda.max_memory_allocated(device)
-            / 2 ** 30, 'device_busy_ms': share['device_busy_ms'],
+            'seconds_per_step': per_step, 'timing': timing,
+            'peak_memory_gib': peak / 2 ** 30,
+            'device_busy_ms': share['device_busy_ms'],
             'device_idle_share': share['device_idle_share'],
             'kernel_ms': share['kernel_ms'], 'launches_per_step': counts[way],
             'metrics': {k: float(v) for k, v in metrics.items()}}
@@ -2752,7 +2788,7 @@ def phase_remat(device, card):
 PREVIEW_TEXTS = ('Hello world.', 'Good morning to you.', 'It is late.',
                  'The port runs here.', 'A short one.', 'Read it back.')
 PREVIEW_TOL = SLICE_TOL   # of max |mel|: GPU vs CPU, f32, TF32 off
-PREVIEW_CPU_ITEMS = 2     # of the 4 preview items, synthesized again on the CPU
+PREVIEW_CPU_ITEMS = 1     # of the 4 preview items, synthesized again on the CPU
 
 
 def phase_previews(device, ckpt):
@@ -2843,7 +2879,8 @@ def phase_generate(device, card, vocoder_ckpt):
     batch and audio-s/s; then the same without the vocoder, and the first
     GEN_CPU_ROWS rows of its first batch against the CPU with the same
     noise (a row's synthesis depends on no other row of its batch). Returns
-    the launches of the vocoder run."""
+    the launches of the vocoder run, the mel run's directory and the
+    arguments both runs share."""
     import numpy as np
     import torch
     from scipy.io import wavfile
@@ -2931,7 +2968,7 @@ def phase_generate(device, card, vocoder_ckpt):
         (err <= SLICE_TOL * scale,
          f'generate: batch 0 max abs err {err} over {SLICE_TOL * scale}'),
         (counts == three, f'generate: launches {counts}')])
-    return counts
+    return counts, mel_dir, common
 
 
 def _zero_reference(cfg, ckpt, device, texts, vec):
@@ -3043,10 +3080,425 @@ def phase_playground(ckpt):
     return counts
 
 
+# ---- ddp and ddp_generate: data parallelism over torch.distributed ----------
+
+# (a) NCCL, one rank, against the plain step: the same arithmetic (a
+# one-rank all_reduce is a copy), so the losses agree to f32 rounding
+DDP_RTOL = 1e-6
+# (b) gloo, two ranks on the one card, each B 8 of the global B 16, against
+# one process on the global batch with the same draws: PERF.md section 2's
+# GPU-against-CPU bounds, losses 1e-4 relative and gradients 1e-3 of the
+# largest, since the ranks' convolutions and reductions run at another
+# batch (cuDNN's picks, the K4/K5 and DDP sums in another order). In bf16
+# (the cell) the two batch sizes round each element differently, within
+# one bf16 rounding; the gradients and parameters are held in an f32 step
+# (TF32 off) from the same start.
+DDP2_LOSS_RTOL = 1e-4
+DDP2_GRAD_TOL = 1e-3     # of the largest gradient
+# Adam's first update is lr * g / (|g| + eps) (eps 1e-8): where |g| nears
+# eps, a gradient difference d moves the update by up to lr * d / eps, so
+# no bound of the update holds there; the parameters are held within 1e-3
+# of the largest update where both gradients exceed 1e3 * eps (there the
+# update moves by at most 1e-5 lr per 1e-7 of gradient difference), and
+# the rest is counted and reported. Both sides round the updated parameter
+# to f32, so one ulp of it (up to 1.2e-7 at |p| near 1, the largest
+# update's scale) comes on top
+DDP2_PARAM_TOL = 1e-3    # of the largest update of the step
+ADAM_FLAT = 1e-5         # |g| below which Adam's first step amplifies rounding
+DDP_GEN_TOL = 1e-4       # of each mel's largest value: generate's rows at B 4
+RANK_TIMEOUT = 600
+
+
+def _free_port():
+    import socket
+    with socket.socket() as sock:
+        sock.bind(('localhost', 0))
+        return sock.getsockname()[1]
+
+
+def _start_ranks(target, spec, ranks=2):
+    """Starts ``ranks`` processes of :func:`rank_main` (``target``,
+    ``spec``), each told its rank as torchrun tells it; returns them for
+    :func:`_finish`."""
+    path = os.path.join(WORK, f'{target}.json')
+    with open(path, 'w', encoding='utf-8') as f:
+        json.dump(spec, f)
+    env = {**os.environ, 'MASTER_ADDR': 'localhost',
+           'MASTER_PORT': str(_free_port()), 'WORLD_SIZE': str(ranks)}
+    code = ('import sys, chip_smoke; '
+            'sys.exit(chip_smoke.rank_main(sys.argv[1], sys.argv[2]))')
+    return [subprocess.Popen([sys.executable, '-c', code, target, path],
+                             cwd=REPO, env={**env, 'RANK': str(r),
+                                            'LOCAL_RANK': str(r)},
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                             text=True) for r in range(ranks)]
+
+
+def _finish(procs, what):
+    """Waits for ``procs`` (RANK_TIMEOUT seconds), kills what is left, and
+    requires each to have exited 0: their (stdout, stderr)."""
+    try:
+        outs = [p.communicate(timeout=RANK_TIMEOUT) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, (_, err)) in enumerate(zip(procs, outs)):
+        require(p.returncode == 0, f'{what}: process {r} exited '
+                                   f'{p.returncode}:\n{err[-3000:]}')
+    return outs
+
+
+def _rank_lines(outs):
+    """The JSON line each rank printed last."""
+    return [json.loads(out.strip().splitlines()[-1]) for out, _ in outs]
+
+
+def rank_main(target, spec_path):
+    """One rank of a two-process phase on the one card: joins the process
+    group over gloo on cuda:0 (NCCL takes no two ranks on one GPU; gloo
+    carries CUDA tensors by way of the host), runs ``target`` of the spec
+    in ``spec_path`` and prints its JSON line."""
+    import torch
+    from gradtts_tpu_torch.parallel.mesh import initialize_distributed, world
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(spec_path, encoding='utf-8') as f:
+        spec = json.load(f)
+    initialize_distributed(device='cuda:0', backend='gloo')
+    try:
+        line = {'ddp_train': _rank_train_step,
+                'ddp_generate': _rank_generate}[target](spec)
+        emit({'rank': world()[0], **line})
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def _rank_train_step(spec):
+    """This rank's block of the train cell's global batch: one DDP step in
+    bf16 (launches counted; metrics) and the wall time a step, then one
+    f32 step from the same start (its parameters and gradients saved)."""
+    import torch
+    from torch.nn.parallel import DistributedDataParallel
+    from gradtts_tpu_torch.parallel.mesh import make_mesh, shard_batch, world
+    from gradtts_tpu_torch.train.loop import batch_to
+    from gradtts_tpu_torch.train.state import make_optimizer, train_step
+
+    device = torch.device('cuda', 0)
+    mesh = make_mesh(device_type='cuda')
+    line = {}
+    for compute in ('bfloat16', 'float32'):
+        cfg, model, glob = train_cell(spec['filelist'], device,
+                                      compute=compute)
+        batch = batch_to(shard_batch(mesh, glob), device)
+        ddp = DistributedDataParallel(model, device_ids=[0],
+                                      process_group=mesh.get_group('data'))
+        optimizer = make_optimizer(model.parameters(),
+                                   cfg.train.learning_rate)
+        gen = torch.Generator(device=device).manual_seed(0)
+
+        def run():
+            metrics = train_step(ddp, optimizer, batch, cfg.out_size,
+                                 cfg.train.grad_clip_norm, gen)
+            torch.cuda.synchronize()
+            return metrics
+
+        reset_counts()
+        metrics = run()                             # the compared step
+        line[compute] = {'metrics': {k: float(v) for k, v in
+                                     metrics.items()},
+                         'launches': read_counts()}
+        if compute == 'float32':
+            path = os.path.join(WORK, f'ddp_rank{world()[0]}.pt')
+            torch.save({'params': {k: v.cpu() for k, v in
+                                   model.state_dict().items()},
+                        'grads': {k: p.grad.cpu() for k, p in
+                                  model.named_parameters()
+                                  if p.grad is not None}}, path)
+            line[compute]['saved'] = path
+        else:
+            line.update(x_shape=list(batch['x'].shape),
+                        y_shape=list(batch['y'].shape))
+            line['seconds_per_step'], line['timing'] = median_call(run, 3)
+    return line
+
+
+def _rank_generate(spec):
+    """``cli.generate`` in this process with the spec's argv (launches
+    counted)."""
+    reset_counts()
+    _, seconds = _cli_main('gradtts_tpu_torch.cli.generate', spec['argv'])
+    return {'launches': read_counts(), 'seconds': seconds}
+
+
+def _one_process_step(filelist, device, compute):
+    """The train cell's step on the global batch in this process, the same
+    draws as the ranks': (metrics, the parameters before and after, the
+    gradients)."""
+    import torch
+    from gradtts_tpu_torch.train.loop import batch_to
+    from gradtts_tpu_torch.train.state import make_optimizer, train_step
+    cfg, model, glob = train_cell(filelist, device, compute=compute)
+    before = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    optimizer = make_optimizer(model.parameters(), cfg.train.learning_rate)
+    metrics = train_step(model, optimizer, batch_to(glob, device),
+                         cfg.out_size, cfg.train.grad_clip_norm,
+                         torch.Generator(device=device).manual_seed(0))
+    grads = {k: p.grad for k, p in model.named_parameters()
+             if p.grad is not None}
+    return ({k: float(v) for k, v in metrics.items()}, before,
+            model.state_dict(), grads)
+
+
+def _held_to_one_process(saved, before, want, grads, device):
+    """The f32 ranks' gradients and parameters against one process's: the
+    gradients' worst difference of the largest; the parameters' worst
+    difference where both gradients exceed ADAM_FLAT, and the same less one
+    f32 epsilon of the parameter (its rounding); the largest update; the
+    elements below ADAM_FLAT (their count, worst difference)."""
+    import torch
+    scale = max(float(g.abs().max()) for g in grads.values())
+    grad_err = param_err = beyond_ulp = largest = flat_err = 0.0
+    flat = 0
+    ulp = torch.finfo(torch.float32).eps
+    for k, w in want.items():
+        got = saved['params'][k].to(device)
+        update = (w - before[k]).abs()
+        largest = max(largest, float(update.max()))
+        steady = torch.ones_like(w, dtype=torch.bool)
+        if k in grads:
+            g, h = grads[k], saved['grads'][k].to(device)
+            grad_err = max(grad_err, float((h - g).abs().max()) / scale)
+            steady = (g.abs() >= ADAM_FLAT) & (h.abs() >= ADAM_FLAT)
+        diff = (got - w).abs()
+        if bool(steady.any()):
+            param_err = max(param_err, float(diff[steady].max()))
+            beyond_ulp = max(beyond_ulp, float(
+                (diff - ulp * w.abs())[steady].max()))
+        if not bool(steady.all()):
+            flat += int((~steady).sum())
+            flat_err = max(flat_err, float(diff[~steady].max()))
+    return {'grad_max_err_of_largest': grad_err, 'param_max_err': param_err,
+            'param_max_err_beyond_ulp': beyond_ulp,
+            'largest_update': largest, 'flat_elements': flat,
+            'flat_param_max_err': flat_err}
+
+
+def phase_ddp(device, card):
+    """Data-parallel training of the train cell (ljspeech at full width,
+    bf16 compute, f32 parameters, 172-frame crops; the train phase's
+    corpus). (a) NCCL, one rank: ``torchrun --standalone --nproc-per-node
+    1 -m gradtts_tpu_torch.cli.train --mesh-data 1`` for TRAIN_STEPS
+    steps against the train phase's plain ``cli.train`` (its checkpoint
+    at the same step, and its log); then in this process the DDP step
+    against the plain step on one batch (metrics within DDP_RTOL; wall
+    and device ms of both). (b) gloo, two ranks on cuda:0, one step on the
+    global B 16 against this process's step on it with the same draws:
+    bf16 losses, f32 losses, gradients and parameters, the ranks'
+    parameters bit-equal, launches a rank and wall s a step. The torchrun
+    run and the two ranks run at once, before the in-process timing.
+    Returns the launches of the in-process DDP step."""
+    import shutil
+    import torch
+    import torch.distributed as dist
+    from torch.nn.parallel import DistributedDataParallel
+    from gradtts_tpu_torch.parallel.mesh import (initialize_distributed,
+                                                 make_mesh)
+    from gradtts_tpu_torch.train.loop import batch_to
+    from gradtts_tpu_torch.train.state import make_optimizer, train_step
+
+    filelist = os.path.join(WORK, 'corpus', 'filelist.txt')
+    plain_dir = os.path.join(WORK, 'train')
+    ckpt_name = os.path.join('ckpt', f'step_{TRAIN_STEPS:08d}.pt')
+    require(os.path.exists(os.path.join(plain_dir, ckpt_name)),
+            'ddp: the train phase left no plain checkpoint')
+    log_dir = os.path.join(WORK, 'ddp_train')
+    shutil.rmtree(log_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    torchrun = subprocess.Popen(
+        [sys.executable, '-m', 'torch.distributed.run', '--standalone',
+         '--nproc-per-node', '1', '-m', 'gradtts_tpu_torch.cli.train',
+         '--mesh-data', '1', '--preset', 'ljspeech', '--log-dir', log_dir,
+         '--no-previews', '--max-steps', str(TRAIN_STEPS), '--set',
+         f'data.train_filelist_path={filelist}'], cwd=REPO,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    ranks = _start_ranks('ddp_train', {'filelist': filelist})
+    (_, err), = _finish([torchrun], 'ddp: torchrun cli.train')
+    ranks = _rank_lines(_finish(ranks, 'ddp: gloo ranks'))
+    both_s = time.perf_counter() - t0
+
+    # (a) torchrun: the plain run's checkpoint and log
+    route = re.search(r'input pipeline: (\w+) mels', err)
+    got = torch.load(os.path.join(log_dir, ckpt_name), weights_only=True)
+    want = torch.load(os.path.join(plain_dir, ckpt_name), weights_only=True)
+    ckpt_err = max(float((got['model'][k] - w).abs().max())
+                   / max(float(w.abs().max()), 1e-30)
+                   for k, w in want['model'].items())
+    logged, plain_logged = (_train_log(d, 'ddp')[0]
+                            for d in (log_dir, plain_dir))
+    # train.log keeps 4 decimals, as the JAX package's: equal within
+    # DDP_RTOL and the log's rounding
+    log_err = max(abs(logged[k] - v) - DDP_RTOL * abs(v)
+                  for k, v in plain_logged.items())
+    line = {'phase': 'ddp', 'card': card, 'preset': 'ljspeech',
+            'batch': TRAIN_B, 'crop': 172,
+            'dtype': 'bfloat16 compute, float32 parameters',
+            'seconds_torchrun_and_ranks': both_s,
+            'nccl_one_rank': {
+                'steps': TRAIN_STEPS,
+                'input_pipeline': route.group(0) if route else None,
+                'distributed_line': 'distributed: process 0/1' in err,
+                'ddp_line': 'data parallel: rank 0 of 1' in err,
+                'logged': logged, 'plain_logged': plain_logged,
+                'checkpoint_max_err_of_largest': ckpt_err}}
+    checks = [(line['nccl_one_rank']['distributed_line']
+               and line['nccl_one_rank']['ddp_line'],
+               'ddp: torchrun cli.train did not join a process group'),
+              (route is not None and route.group(1) == 'device',
+               'ddp: torchrun cli.train took no device mels'),
+              (log_err <= 0.5e-4, f'ddp: logged {logged} against the plain '
+                                  f'run\'s {plain_logged}'),
+              (ckpt_err <= DDP_RTOL, f'ddp: the checkpoint parts from the '
+                                     f'plain run\'s by {ckpt_err}')]
+
+    # (a) in this process: one NCCL rank, the DDP step beside the plain one
+    initialize_distributed(f'localhost:{_free_port()}', 1, 0,
+                           device=device)
+    try:
+        cfg, plain, glob = train_cell(filelist, device)
+        _, model, _ = train_cell(filelist, device)
+        batch = batch_to(glob, device)
+        mesh = make_mesh(device_type='cuda')
+        ddp = DistributedDataParallel(
+            model, device_ids=[torch.cuda.current_device()],
+            process_group=mesh.get_group('data'))
+        steps = {}
+        for way, net, params in (('ddp', ddp, model.parameters()),
+                                 ('plain', plain, plain.parameters())):
+            optimizer = make_optimizer(params, cfg.train.learning_rate)
+            gen = torch.Generator(device=device).manual_seed(0)
+
+            def run(net=net, optimizer=optimizer, gen=gen):
+                metrics = train_step(net, optimizer, batch, cfg.out_size,
+                                     cfg.train.grad_clip_norm, gen)
+                torch.cuda.synchronize()
+                return metrics
+
+            reset_counts()
+            metrics = run()                         # the main path's run
+            counts = read_counts()
+            per_step, timing = median_call(run, 10, warmup=2)
+            share = _device_share(run, per_step * 1e3, f'ddp {way}')
+            steps[way] = {'metrics': {k: float(v) for k, v in
+                                      metrics.items()},
+                          'launches': counts, 'seconds_per_step': per_step,
+                          'timing': timing,
+                          'device_busy_ms': share['device_busy_ms'],
+                          'device_idle_share': share['device_idle_share'],
+                          'device_kernels': share['device_kernels'],
+                          'kernel_ms': share['kernel_ms']}
+        ddp_counts = steps['ddp']['launches']
+    finally:
+        dist.destroy_process_group()
+    rel = max(abs(steps['ddp']['metrics'][k] - v) / abs(v)
+              for k, v in steps['plain']['metrics'].items())
+    line['in_process'] = {**steps, 'metrics_max_rel_err': rel}
+    checks += [(rel <= DDP_RTOL, f'ddp: the DDP step\'s metrics part from '
+                                 f'the plain step\'s by {rel}'),
+               (ddp_counts == TRAIN_COUNTS,
+                f'ddp: launches per DDP step {ddp_counts}')]
+
+    # (b) gloo, two ranks on the one card, against one process
+    gloo = {'ranks': ranks}
+    for compute in ('bfloat16', 'float32'):
+        want_metrics, before, want, grads = _one_process_step(
+            filelist, device, compute)
+        got = ranks[0][compute]['metrics']
+        gloo[compute] = {'one_process_metrics': want_metrics,
+                         'loss_max_rel_err': max(
+                             abs(got[k] - v) / abs(v) for k, v in
+                             want_metrics.items() if k.startswith('loss'))}
+        checks += [
+            (gloo[compute]['loss_max_rel_err'] <= DDP2_LOSS_RTOL,
+             f'ddp: two ranks\' {compute} losses part from one '
+             f'process\'s by {gloo[compute]["loss_max_rel_err"]}'),
+            (got == ranks[1][compute]['metrics'],
+             f'ddp: the two ranks report different {compute} metrics'),
+            (all(r[compute]['launches'] == TRAIN_COUNTS for r in ranks),
+             f'ddp: {compute} launches a rank '
+             f'{[r[compute]["launches"] for r in ranks]}')]
+    saved = [torch.load(r['float32']['saved'], weights_only=True)
+             for r in ranks]
+    equal = all(torch.equal(saved[0][part][k], saved[1][part][k])
+                for part in ('params', 'grads') for k in saved[0][part])
+    held = _held_to_one_process(saved[0], before, want, grads, device)
+    gloo['float32'].update(held, ranks_bit_equal=equal)
+    line['gloo_two_ranks'] = gloo
+    checks += [
+        (equal, 'ddp: the two ranks hold different parameters'),
+        (held['grad_max_err_of_largest'] <= DDP2_GRAD_TOL,
+         f'ddp: two ranks\' gradients part from one process\'s by '
+         f'{held["grad_max_err_of_largest"]} of the largest'),
+        (held['param_max_err_beyond_ulp']
+         <= DDP2_PARAM_TOL * held['largest_update'],
+         f'ddp: two ranks\' parameters part from one process\'s by '
+         f'{held["param_max_err_beyond_ulp"]} beyond their rounding, of a '
+         f'largest update {held["largest_update"]}')]
+    _check(line, checks)
+    return ddp_counts
+
+
+def phase_ddp_generate(card, mel_dir, common):
+    """``cli.generate --mesh-data 2`` (two processes on cuda:0 over gloo,
+    B 4 a rank) on the generate phase's split, without the vocoder,
+    against its ``--mesh-data 1`` run: the same files, each mel within
+    DDP_GEN_TOL of its largest value. Returns the launches of both ranks."""
+    import shutil
+    import numpy as np
+
+    out = os.path.join(WORK, 'gen_mel_dp')
+    shutil.rmtree(out, ignore_errors=True)
+    t0 = time.perf_counter()
+    ranks = _rank_lines(_finish(_start_ranks('ddp_generate', {
+        'argv': ['-o', out, '--mesh-data', '2', *common]}),
+        'ddp_generate: ranks'))
+    seconds = time.perf_counter() - t0
+    names = {b: sorted(os.listdir(os.path.join(mel_dir, b)))
+             for b in sorted(os.listdir(mel_dir))}
+    got_names = {b: sorted(os.listdir(os.path.join(out, b)))
+                 for b in sorted(os.listdir(out))}
+    worst = 0.0
+    if names == got_names:
+        for b, files in names.items():
+            for f in files:
+                want, got = (np.load(os.path.join(d, b, f))
+                             for d in (mel_dir, out))
+                require(got.shape == want.shape, f'ddp_generate: {b}/{f} '
+                                                 f'{got.shape} {want.shape}')
+                worst = max(worst, float(np.abs(got - want).max())
+                            / float(np.abs(want).max()))
+    counts = {k: sum(r['launches'][k] for r in ranks)
+              for k in ranks[0]['launches']}
+    three = {k: 3 * v for k, v in EXPECTED_COUNTS.items()}
+    _check({'phase': 'ddp_generate', 'card': card, 'ranks': ranks,
+            'seconds': seconds, 'files_per_batch': {
+                b: len(f) for b, f in got_names.items()},
+            'mel_max_err_of_largest': worst, 'tol': DDP_GEN_TOL}, [
+        (names == got_names, f'ddp_generate: files {got_names} against '
+                             f'{names}'),
+        (worst <= DDP_GEN_TOL, f'ddp_generate: mels part by {worst} of '
+                               'their largest'),
+        (all(r['launches'] == three for r in ranks),
+         f'ddp_generate: launches a rank {[r["launches"] for r in ranks]}')])
+    return counts
+
+
 # ---- evaluate ---------------------------------------------------------------
 
 EVAL_ITEMS = 8           # the test split of the evaluate phase
-EVAL_CPU_ROWS = 2        # its shortest utterances, evaluated again on the CPU
+EVAL_CPU_ROWS = 1        # its shortest utterance, evaluated again on the CPU
 EVAL_MCD_RTOL = 1e-2     # MCD of the GPU's waveform against the CPU's
 EVAL_F0_FRAMES = 2       # GPE, VDE, FFE: within this many frames' share
 
@@ -3083,7 +3535,7 @@ def phase_evaluate(device, card, ckpt, vocoder_ckpt):
     seeded full-width ljspeech checkpoint and the seeded V1 vocoder over an
     EVAL_ITEMS-utterance test split (ljspeech texts, 22.05 kHz wavs of
     1.5-10 s) at 50 Euler steps with --out-dir: every metric finite, the
-    MEAN: line the file's mean; the EVAL_CPU_ROWS shortest utterances
+    MEAN: line the file's mean; the EVAL_CPU_ROWS shortest utterance(s)
     again on the CPU with the noise the CLI drew: the mel within SLICE_TOL
     of its largest value, the vocoder on one mel within SLICE_TOL of the
     waveform's largest value, MCD within EVAL_MCD_RTOL, GPE, VDE and FFE
@@ -3572,13 +4024,15 @@ def _family(name):
 
 def _device_share(run, call_ms, what):
     """Device time by kernel over one call of ``run`` (a synthesis, a train
-    step or a likelihood score) from torch.profiler, against its
-    unprofiled time."""
+    step or a likelihood score) from ``utils.profiling.trace`` (a
+    torch.profiler capture, its trace file in a temporary directory),
+    against its unprofiled time."""
+    import tempfile
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        run()
+    from gradtts_tpu_torch.utils.profiling import trace
+    with tempfile.TemporaryDirectory(dir=WORK) as logdir:
+        with trace(logdir) as prof:
+            run()
     # device kernels, not the ranges of user annotations (the optimizer's
     # step shows as one) that overlap them
     kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA
@@ -3643,6 +4097,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device('cuda')
+    os.makedirs(WORK, exist_ok=True)
     t_start = time.perf_counter()
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
@@ -3670,7 +4125,9 @@ def main():
         timed(phase_mel_slice, device, card)
         timed(phase_vocoder_train_slice, device)
         timed(phase_cli, ckpt, spk_ckpt, vocoder_ckpt)
-        counts = {'synth': timed(phase_synth, device, card)}
+        counts = {}
+        counts['synth'], synth_run = timed(phase_synth, device, card)
+        timed(phase_profiling, synth_run, card)
         counts['dpm8'] = timed(phase_dpm8, device, card)
         counts['waveform'] = timed(phase_waveform, device, card)
         counts['multispeaker'] = timed(phase_multispeaker, device, card)
@@ -3691,11 +4148,16 @@ def main():
                                          ckpt)
         counts['remat'] = timed(phase_remat, device, card)
         counts['previews'] = timed(phase_previews, device, ckpt)
-        counts['generate'] = timed(phase_generate, device, card,
-                                   vocoder_ckpt)
+        counts['generate'], gen_mels, gen_args = timed(
+            phase_generate, device, card, vocoder_ckpt)
         counts['inference_zero'] = timed(phase_inference_zero, device,
                                          vocoder_ckpt)
         counts['playground'] = timed(phase_playground, ckpt)
+        # data parallelism over torch.distributed, each path counted from
+        # 0 just before it (in this process, and in each rank's)
+        counts['ddp'] = timed(phase_ddp, device, card)
+        counts['ddp_generate'] = timed(phase_ddp_generate, card, gen_mels,
+                                       gen_args)
         # objective evaluation and the trained-weights gate, each counted
         # from 0 just before it
         counts['evaluate'], eval_list, eval_out = timed(

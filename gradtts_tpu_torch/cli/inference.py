@@ -94,12 +94,17 @@ def load_vocoder(path, config_path, device) -> Generator:
     return vocoder.to(device).eval()
 
 
-def write_wav(vocoder, mel, path: str, sample_rate: int) -> None:
-    """The vocoder's waveform of ``mel`` [frames, n_feats] written to
-    ``path`` as int16 after a clip to [-1, 1]."""
+def vocode(vocoder, mel) -> np.ndarray:
+    """The vocoder's waveform of ``mel`` [frames, n_feats] as int16 after a
+    clip to [-1, 1]."""
     with torch.no_grad():
         wav = vocoder(mel[None])[0].clamp(-1, 1).cpu().numpy()
-    wavfile.write(path, sample_rate, (wav * 32767).astype(np.int16))
+    return (wav * 32767).astype(np.int16)
+
+
+def write_wav(vocoder, mel, path: str, sample_rate: int) -> None:
+    """:func:`vocode` of ``mel`` written to ``path``."""
+    wavfile.write(path, sample_rate, vocode(vocoder, mel))
 
 
 def main(argv=None):

@@ -92,9 +92,10 @@ class TrainConfig:
     grad_clip_norm: float = 1.0  # applied per submodule (encoder / decoder)
     use_bf16_compute: bool = True
     # The training fields mirror gradtts_tpu.config so that a preset reads
-    # the same in both packages. The port's trainer (train/loop.py) runs on
-    # one device: it refuses mesh_data other than -1 or 1 and mesh_model
-    # other than 1. remat_estimator recomputes the U-Net's forward in the
+    # the same in both packages. The port's trainer (train/loop.py) runs
+    # one process a GPU: mesh_data must be the process count (torchrun
+    # --nproc-per-node) or -1, and mesh_model above 1 (tensor parallelism)
+    # is refused. remat_estimator recomputes the U-Net's forward in the
     # backward pass (less memory, the same gradients). device_mel True
     # computes the mels on the trainer's device, False on the host; None
     # picks the device on a GPU in one process and the host on the CPU.

@@ -26,7 +26,7 @@ import torch
 from torch import nn
 
 from gradtts_tpu_torch.models.layers import (Conv2d, ConvTranspose2d,
-                                             mish)
+                                             draw, mish)
 from gradtts_tpu_torch.ops.groupnorm_mish import groupnorm_mish
 from gradtts_tpu_torch.ops.linear_attention import linear_attention_rezero
 
@@ -178,7 +178,9 @@ class GradLogPEstimator2d(nn.Module):
     the JAX package computes the MLP and uses its output nowhere (the
     fork's quirk): the parameters exist so that a reference checkpoint
     loads, and the output does not depend on the vector, so the MLP is
-    not run."""
+    not run, and its parameters need no grad (Adam leaves them as they
+    are on both sides, and ``DistributedDataParallel`` waits for no grad
+    of theirs)."""
 
     def __init__(self, dim: int, dim_mults=(1, 2, 4), groups: int = 8,
                  n_feats: int = 80, pe_scale: float = 1000.0,
@@ -192,6 +194,7 @@ class GradLogPEstimator2d(nn.Module):
             self.spk_mlp = nn.Sequential(
                 nn.Linear(spk_emb_dim, spk_emb_dim * 4), Mish(),
                 nn.Linear(spk_emb_dim * 4, n_feats))
+            self.spk_mlp.requires_grad_(n_spks > 1)
         self.time_pos_emb = SinusoidalPosEmb(dim)
         self.mlp = nn.Sequential(nn.Linear(dim, dim * 4), Mish(),
                                  nn.Linear(dim * 4, dim))
@@ -384,22 +387,29 @@ def forward_diffusion(x0, mask, mu, t, z, beta_min, beta_max):
 
 
 def diffusion_loss(estimator, x0, mask, mu, beta_min, beta_max, t=None,
-                   z=None, generator=None, offset: float = 1e-5, spk=None):
+                   z=None, generator=None, offset: float = 1e-5, spk=None,
+                   count=None):
     """Score-matching loss (``diffusion_loss`` :773). ``t`` [B] (clipped to
     [offset, 1 - offset]) and ``z`` [B, T, F] are the uniform and normal
-    draws; each that is None is drawn from ``generator``. mask [B, T, 1];
-    ``spk`` the embedded speaker. Returns (loss, x_t, t)."""
+    draws; each that is None is drawn from ``generator`` (a
+    ``torch.Generator`` or a ``RowShard``). mask [B, T, 1]; ``spk`` the
+    embedded speaker. The sum of squares is divided by ``count``, the
+    masked elements of the global batch where this process holds a part
+    of it (:786 divides by the global batch's under its mesh), or by this
+    batch's own (``sum(mask) * F``) where None. Returns (loss, x_t, t)."""
     if t is None:
-        t = torch.rand(x0.shape[0], generator=generator, dtype=x0.dtype,
-                       device=x0.device)
+        t = draw(torch.rand, (x0.shape[0],), generator, dtype=x0.dtype,
+                 device=x0.device)
     if z is None:
-        z = torch.randn(x0.shape, generator=generator, dtype=x0.dtype,
-                        device=x0.device)
+        z = draw(torch.randn, x0.shape, generator, dtype=x0.dtype,
+                 device=x0.device)
     t = torch.clamp(t, offset, 1.0 - offset)
     xt, z = forward_diffusion(x0, mask, mu, t, z, beta_min, beta_max)
     cum_noise = get_noise(t[:, None, None], beta_min, beta_max,
                           cumulative=True)
     est = estimator(xt, mask[..., 0], mu, t, spk)
     est = est * torch.sqrt(1.0 - torch.exp(-cum_noise))
-    loss = torch.sum((est + z) ** 2) / (torch.sum(mask) * x0.shape[-1])
+    if count is None:
+        count = torch.sum(mask) * x0.shape[-1]
+    loss = torch.sum((est + z) ** 2) / count
     return loss, xt, t

@@ -8,6 +8,8 @@ input (:class:`CastAtUse`). Norms compute in f32, and dropout draws its keep mas
 from an explicit generator.
 """
 
+from typing import NamedTuple
+
 import torch
 from torch import nn
 from torch.nn import functional as F
@@ -18,18 +20,43 @@ def mish(x: torch.Tensor) -> torch.Tensor:
     return x * torch.tanh(nn.functional.softplus(x))
 
 
+class RowShard(NamedTuple):
+    """The random generator of a data-parallel step, the same on every
+    rank, and this rank's block of the global batch: row block ``index``
+    of ``count``. :func:`draw` makes each draw at the global batch's shape
+    and keeps the rank's rows, so ``count`` ranks draw together what one
+    process draws for the whole batch, as the JAX package's replicated key
+    draws at the global shape under its mesh."""
+    generator: torch.Generator
+    index: int
+    count: int
+
+
+def draw(sample, shape, generator, **kwargs) -> torch.Tensor:
+    """``sample(shape, generator=generator, **kwargs)`` for a sampler such
+    as ``torch.rand``, whose dim 0 is the batch; where ``generator`` is a
+    :class:`RowShard`, this rank's rows of the draw at the global shape."""
+    if not isinstance(generator, RowShard):
+        return sample(shape, generator=generator, **kwargs)
+    b = shape[0]
+    full = sample((b * generator.count, *shape[1:]),
+                  generator=generator.generator, **kwargs)
+    return full[generator.index * b:(generator.index + 1) * b]
+
+
 def dropout(x: torch.Tensor, p: float, training: bool,
             generator) -> torch.Tensor:
     """flax ``nn.Dropout`` semantics (``_dropout``, text_encoder.py:303):
     keep each element with probability 1 - p and scale it by 1 / (1 - p).
     The identity unless ``training``; the keep mask is drawn from
-    ``generator``, which training must pass."""
+    ``generator`` (a ``torch.Generator`` or a :class:`RowShard`), which
+    training must pass."""
     if not training or p <= 0.0:
         return x
     if generator is None:
         raise ValueError('dropout in training mode draws from an explicit '
                          'torch.Generator; pass generator=')
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1 - p
+    keep = draw(torch.rand, x.shape, generator, device=x.device) < 1 - p
     return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype,
                                                         device=x.device))
 

@@ -23,6 +23,7 @@ from gradtts_tpu_torch.config import GradTTSConfig
 from gradtts_tpu_torch.models.diffusion import (Diffusion, diffusion_loss,
                                                 reverse_diffusion,
                                                 reverse_diffusion_dpm)
+from gradtts_tpu_torch.models.layers import draw
 from gradtts_tpu_torch.models.text_encoder import TextEncoder
 from gradtts_tpu_torch.ops.mas import maximum_path
 from gradtts_tpu_torch.ops.seq import (duration_loss, generate_path,
@@ -90,6 +91,11 @@ class GradTTS(nn.Module):
         """Score estimate [B, Ty, F] (f32) for x_t, mu [B, Ty, F], mask
         [B, Ty], t [B]; ``spk_vec`` as in :meth:`encode`."""
         return self.decoder.estimator(x_t, mask, mu, t, spk_vec)
+
+    def forward(self, x, x_lengths, y, y_lengths, **kwargs) -> 'LossResult':
+        """The training losses, :func:`compute_loss` of this model: a
+        ``DistributedDataParallel`` wrapper sees the step's forward here."""
+        return compute_loss(self, x, x_lengths, y, y_lengths, **kwargs)
 
 
 def set_compute_dtype(model: GradTTS, dtype: torch.dtype) -> GradTTS:
@@ -184,16 +190,30 @@ class LossResult(NamedTuple):
 def crop_offsets(y_lengths, out_size: int, generator=None):
     """Per-item crop start, drawn as ``compute_loss`` :266-269 draws it:
     a 30-bit integer modulo max(y_length - out_size, 1), 0 where the item
-    is no longer than the crop."""
+    is no longer than the crop. ``generator``: a ``torch.Generator`` or a
+    ``RowShard``."""
     max_offset = (y_lengths - out_size).clamp_min(0)
-    rand = torch.randint(0, 1 << 30, y_lengths.shape, generator=generator,
-                         device=y_lengths.device)
+    rand = draw(functools.partial(torch.randint, 0, 1 << 30),
+                y_lengths.shape, generator, device=y_lengths.device)
     return torch.where(max_offset > 0, rand % max_offset.clamp_min(1), 0)
+
+
+def loss_counts(x_lengths, y_lengths, y_max_length: int,
+                out_size: Optional[int] = None) -> torch.Tensor:
+    """[2] f32: the tokens and the mel frames (after the crop to
+    ``out_size`` where it is shorter than ``y_max_length``) of a batch,
+    the counts that :func:`compute_loss` normalizes by. Summed over the
+    ranks of a data-parallel step, they are the global batch's."""
+    frames = y_lengths
+    if out_size is not None and out_size < y_max_length:
+        frames = y_lengths.clamp_max(out_size)
+    return torch.stack([x_lengths.sum(), frames.sum()]).float()
 
 
 def compute_loss(model: GradTTS, x, x_lengths, y, y_lengths,
                  out_size: Optional[int] = None, offset=None, t=None, z=None,
-                 generator=None, spk=None, remat: bool = False) -> LossResult:
+                 generator=None, spk=None, remat: bool = False,
+                 counts=None) -> LossResult:
     """Duration + prior + diffusion losses (``compute_loss`` :234).
 
     x [B, Tx] ids; y [B, Ty, F] mels; ``spk`` speaker ids [B] or vectors
@@ -206,7 +226,16 @@ def compute_loss(model: GradTTS, x, x_lengths, y, y_lengths,
     U-Net's activations between its forward and its backward, which runs
     the forward again (``jax.checkpoint`` at :291-292): the same
     gradients; as one segment around the whole U-Net, it frees memory
-    only while the rest of the step runs."""
+    only while the rest of the step runs.
+
+    ``counts`` [2], the global batch's :func:`loss_counts` where this
+    process holds a part of it, are the losses' normalizers (tokens;
+    frames, times the features for the prior and diffusion losses), as
+    the JAX package's losses are means over the global batch under its
+    mesh (:299); each loss is then this part's sum over the global count.
+    None: this batch's own counts. ``generator`` may be a ``RowShard``,
+    which draws the crop, ``t``, ``z`` and the dropout masks at the
+    global batch's shape and keeps this part's rows."""
     spk_vec = model.embed_speaker(spk)
     mu_x, logw, x_mask = model.encode(x, x_lengths, generator, spk_vec)
     y_max_length = y.shape[1]
@@ -217,7 +246,8 @@ def compute_loss(model: GradTTS, x, x_lengths, y, y_lengths,
                             attn_mask.contiguous())
 
     logw_hat = torch.log(1e-8 + torch.sum(attn, dim=-1))[..., None] * x_mask
-    dur = duration_loss(logw, logw_hat, x_lengths)
+    n_tokens, n_frames = (None, None) if counts is None else counts
+    dur = duration_loss(logw, logw_hat, x_lengths, n_tokens)
 
     if out_size is not None and out_size < y_max_length:
         if offset is None:
@@ -242,10 +272,14 @@ def compute_loss(model: GradTTS, x, x_lengths, y, y_lengths,
             use_reentrant=False, preserve_rng_state=False)
     diff, _, _ = diffusion_loss(estimator, y, y_mask, mu_y,
                                 model.decoder.beta_min, model.decoder.beta_max,
-                                t=t, z=z, generator=generator, spk=spk_vec)
+                                t=t, z=z, generator=generator, spk=spk_vec,
+                                count=None if counts is None
+                                else n_frames * model.n_feats)
     prior = torch.sum(0.5 * ((y - mu_y) ** 2 + math.log(2 * math.pi))
                       * y_mask)
-    prior = prior / (torch.sum(y_mask) * model.n_feats)
+    if n_frames is None:
+        n_frames = torch.sum(y_mask)
+    prior = prior / (n_frames * model.n_feats)
     return LossResult(dur, prior, diff, attn)
 
 

@@ -24,7 +24,11 @@ def generate_path(duration: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 
 
 def duration_loss(logw: torch.Tensor, logw_hat: torch.Tensor,
-                  lengths: torch.Tensor) -> torch.Tensor:
+                  lengths: torch.Tensor, n_tokens=None) -> torch.Tensor:
     """MSE between log-durations, normalized by the total token count
-    (``duration_loss`` :44)."""
-    return torch.sum((logw - logw_hat) ** 2) / torch.sum(lengths)
+    (``duration_loss`` :44): ``n_tokens``, the global batch's where this
+    process holds a part of it (:47 counts the global batch's under its
+    mesh), or ``sum(lengths)`` where None."""
+    if n_tokens is None:
+        n_tokens = torch.sum(lengths)
+    return torch.sum((logw - logw_hat) ** 2) / n_tokens

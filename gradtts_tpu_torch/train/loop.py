@@ -24,7 +24,19 @@ and a dataset of at least ``train.test_size`` items, ``test_size`` of them
 ``generated_enc_{i}.png``, ``generated_dec_{i}.png`` and
 ``alignment_{i}.png`` and as TensorBoard images. The plots need
 matplotlib, a host-side package: where it is missing, ``train`` raises
-before the first step. Not ported: multi-device training.
+before the first step.
+
+Data parallelism (:104-346): where this process belongs to a process
+group (``parallel.mesh.initialize_distributed``; ``torchrun
+--nproc-per-node W``), ``train`` builds the ('data', 'model') mesh over
+the W ranks, wraps the model in ``DistributedDataParallel`` over 'data',
+and each rank's loader takes its contiguous block of every global batch
+of ``train.batch_size`` (``DataLoader(shard=(rank, W))``, global-batch
+shapes on every rank). A step then equals one process's step on the
+global batch (``train.state.train_step``: the draws at the global shape,
+the losses normalized by the global counts). Rank 0 alone writes the
+logs, the previews and the checkpoints; every rank resumes from the same
+file. The 'model' axis (tensor parallelism) is not ported.
 """
 
 import logging
@@ -34,12 +46,15 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.nn.parallel import DistributedDataParallel
 
 from gradtts_tpu_torch.config import GradTTSConfig
 from gradtts_tpu_torch.data.dataset import (BatchCollate, DataLoader,
                                             dataset_from_config)
 from gradtts_tpu_torch.models.tts import (GradTTS, set_compute_dtype,
                                           synthesize)
+from gradtts_tpu_torch.parallel.mesh import make_mesh, world
 from gradtts_tpu_torch.train.checkpoint import (restore_checkpoint,
                                                 save_checkpoint)
 from gradtts_tpu_torch.train.state import METRICS, make_optimizer, train_step
@@ -52,16 +67,20 @@ class MetricsLogger:
     """TensorBoard scalars (when available) and the ``train.log`` text
     file in ``log_dir``. ``add`` keeps a step's metrics (0-d tensors) on
     the device and fetches them ``FLUSH_EVERY`` steps at a time in one
-    copy; ``end_epoch`` fetches the rest and writes the epoch's means."""
+    copy; ``end_epoch`` fetches the rest and writes the epoch's means.
+    With ``enabled`` False (the ranks other than 0) it writes no file and
+    still returns the means."""
 
-    def __init__(self, log_dir, names):
-        os.makedirs(log_dir, exist_ok=True)
-        try:
-            from torch.utils.tensorboard import SummaryWriter
-            self._tb = SummaryWriter(log_dir=log_dir)
-        except ImportError:          # tensorboard is not installed
-            self._tb = None
-        self._txt = open(os.path.join(log_dir, 'train.log'), 'a')
+    def __init__(self, log_dir, names, enabled: bool = True):
+        self._tb = self._txt = None
+        if enabled:
+            os.makedirs(log_dir, exist_ok=True)
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+                self._tb = SummaryWriter(log_dir=log_dir)
+            except ImportError:          # tensorboard is not installed
+                pass
+            self._txt = open(os.path.join(log_dir, 'train.log'), 'a')
         self.names = tuple(names)
         self._pending, self._epoch = [], []
 
@@ -77,8 +96,9 @@ class MetricsLogger:
                 self._tb.add_image(k, v, global_step=step, dataformats='HWC')
 
     def text(self, msg: str):
-        self._txt.write(msg + '\n')
-        self._txt.flush()
+        if self._txt is not None:
+            self._txt.write(msg + '\n')
+            self._txt.flush()
 
     def add(self, step: int, metrics: dict):
         self._pending.append((step, metrics))
@@ -114,7 +134,8 @@ class MetricsLogger:
     def close(self):
         if self._tb is not None:
             self._tb.close()
-        self._txt.close()
+        if self._txt is not None:
+            self._txt.close()
 
 
 class TrainResult(NamedTuple):
@@ -122,6 +143,7 @@ class TrainResult(NamedTuple):
     model: GradTTS
     optimizer: torch.optim.Optimizer
     generator: torch.Generator
+    metrics: dict        # the last epoch's means, the same on every rank
 
 
 def batch_to(batch: dict, device) -> dict:
@@ -138,19 +160,23 @@ def batch_to(batch: dict, device) -> dict:
 
 
 def check_ported(cfg: GradTTSConfig) -> None:
-    """Raises ValueError at a training setting the port cannot honour:
-    the JAX package's device mesh (``gradtts_tpu/train/loop.py:104``). One
-    device (``mesh_data`` -1 or 1, ``mesh_model`` 1) is what the port
-    runs."""
+    """Raises ValueError at a mesh the port cannot honour
+    (``gradtts_tpu/train/loop.py:104``): its 'data' axis is the process
+    group's W ranks, one GPU each, so ``train.mesh_data`` must be W or -1;
+    a 'model' axis (``train.mesh_model`` above 1, tensor parallelism) is
+    not ported."""
     t = cfg.train
-    for refused, what in [
-            (t.mesh_data not in (-1, 1), f'train.mesh_data={t.mesh_data} '
-                                         '(data-parallel training)'),
-            (t.mesh_model != 1, f'train.mesh_model={t.mesh_model} (a model '
-                                'axis)')]:
-        if refused:
-            raise ValueError(f'{what} is not ported to gradtts_tpu_torch '
-                             'yet; use python -m gradtts_tpu.cli.train')
+    ranks = world()[1]
+    if t.mesh_data not in (-1, ranks):
+        raise ValueError(
+            f'train.mesh_data={t.mesh_data} needs as many processes, one a '
+            f'GPU, and this run has {ranks}: launch with torchrun '
+            f'--nproc-per-node {t.mesh_data} (or set train.mesh_data=-1)')
+    if t.mesh_model != 1:
+        raise ValueError(f'train.mesh_model={t.mesh_model} (a model axis, '
+                         'tensor parallelism) is not ported to '
+                         'gradtts_tpu_torch yet; use python -m '
+                         'gradtts_tpu.cli.train')
 
 
 def use_device_mel(cfg: GradTTSConfig, device) -> bool:
@@ -158,10 +184,7 @@ def use_device_mel(cfg: GradTTSConfig, device) -> bool:
     GPU and this is the only process."""
     if cfg.train.device_mel is not None:
         return bool(cfg.train.device_mel)
-    one_process = not (torch.distributed.is_available()
-                       and torch.distributed.is_initialized()
-                       and torch.distributed.get_world_size() > 1)
-    return torch.device(device).type == 'cuda' and one_process
+    return torch.device(device).type == 'cuda' and world()[1] == 1
 
 
 def preview_budget(n_tokens: int) -> int:
@@ -225,17 +248,19 @@ def train(cfg: GradTTSConfig, n_epochs: Optional[int] = None,
           max_steps: Optional[int] = None, log_dir: Optional[str] = None,
           resume: bool = True, loader=None, device=None,
           synthesis_every_epoch: bool = True) -> TrainResult:
-    """Trains per ``cfg`` on ``device`` (default ``cuda``) and returns the
-    final step, model, optimizer and generator. ``loader`` (an iterable of
-    collated batches) replaces the dataset of ``cfg``, and with it the
-    previews; ``max_steps`` bounds the steps of this call;
-    ``synthesis_every_epoch`` writes the previews (see the module's
-    docstring). Settings the port cannot honour raise
-    (:func:`check_ported`)."""
+    """Trains per ``cfg`` on ``device`` (default ``cuda``, the current
+    CUDA device) and returns the final step, model, optimizer, generator
+    and the last epoch's mean metrics. ``loader`` (an iterable of collated
+    batches, this rank's rows of each global batch in a multi-process run)
+    replaces the dataset of ``cfg``, and with it the previews;
+    ``max_steps`` bounds the steps of this call; ``synthesis_every_epoch``
+    writes the previews (see the module's docstring). Settings the port
+    cannot honour raise (:func:`check_ported`)."""
     check_ported(cfg)
     log_dir = log_dir or cfg.train.log_dir
     n_epochs = n_epochs if n_epochs is not None else cfg.train.n_epochs
     device = torch.device(device or 'cuda')
+    lead = world()[0] == 0
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(cfg.train.seed)      # the initial weights
         model = GradTTS.from_config(cfg)
@@ -255,6 +280,21 @@ def train(cfg: GradTTSConfig, n_epochs: Optional[int] = None,
         start_step = int(payload['step'])
         log.info('resumed from step %d', start_step)
 
+    net, shard = model, None
+    if dist.is_initialized():
+        mesh = make_mesh(cfg.train.mesh_data, cfg.train.mesh_model,
+                         device_type=device.type)
+        shard = (mesh.get_local_rank('data'), mesh.size(0))
+        ids = None
+        if device.type == 'cuda':
+            ids = [device.index if device.index is not None
+                   else torch.cuda.current_device()]
+        # every parameter takes part in every step (the speaker MLP that
+        # n_spks -1 never runs needs no grad), so no search for unused ones
+        net = DistributedDataParallel(model, device_ids=ids,
+                                      process_group=mesh.get_group('data'))
+        log.info('data parallel: rank %d of %d', *shard)
+
     dataset = None
     if loader is None:
         device_mel = use_device_mel(cfg, device)
@@ -264,14 +304,14 @@ def train(cfg: GradTTSConfig, n_epochs: Optional[int] = None,
         loader = DataLoader(dataset, cfg.train.batch_size,
                             BatchCollate(cfg.data.x_buckets,
                                          cfg.data.y_buckets),
-                            shuffle=True, seed=cfg.train.seed,
+                            shuffle=True, seed=cfg.train.seed, shard=shard,
                             device_mel=device_mel, device=device)
     test_items = plotting = None
-    if (synthesis_every_epoch and dataset is not None
+    if (lead and synthesis_every_epoch and dataset is not None
             and len(dataset) >= cfg.train.test_size):
         plotting = _plotting()
         test_items = dataset.sample_test_batch(cfg.train.test_size)
-    metrics_log = MetricsLogger(log_dir, METRICS)
+    metrics_log = MetricsLogger(log_dir, METRICS, enabled=lead)
 
     def log_previews(at_step):
         images = {}
@@ -285,7 +325,7 @@ def train(cfg: GradTTSConfig, n_epochs: Optional[int] = None,
                                                      f'{name}_{i}.png'))
         metrics_log.images(images, at_step)
 
-    step = start_step
+    step, means = start_step, None
     try:
         if test_items is not None:
             metrics_log.images({
@@ -297,14 +337,15 @@ def train(cfg: GradTTSConfig, n_epochs: Optional[int] = None,
         for epoch in range(n_epochs):
             t0 = time.time()
             for batch in loader:
-                metrics = train_step(model, optimizer, batch_to(batch, device),
+                metrics = train_step(net, optimizer, batch_to(batch, device),
                                      cfg.out_size, cfg.train.grad_clip_norm,
                                      generator, cfg.train.remat_estimator)
                 step += 1
                 metrics_log.add(step, metrics)
                 if max_steps is not None and step - start_step >= max_steps:
                     break
-            if metrics_log.end_epoch(epoch, time.time() - t0) is None:
+            means = metrics_log.end_epoch(epoch, time.time() - t0)
+            if means is None:
                 raise ValueError(
                     'the training data gave no batch: check '
                     f'data.train_filelist_path '
@@ -321,4 +362,4 @@ def train(cfg: GradTTSConfig, n_epochs: Optional[int] = None,
                 break
     finally:
         metrics_log.close()
-    return TrainResult(step, model, optimizer, generator)
+    return TrainResult(step, model, optimizer, generator, means)

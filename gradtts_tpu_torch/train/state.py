@@ -9,8 +9,11 @@ the compute dtype, as the JAX package keeps them.
 """
 
 import torch
+import torch.distributed as dist
+from torch.nn.parallel import DistributedDataParallel
 
-from gradtts_tpu_torch.models.tts import GradTTS, compute_loss
+from gradtts_tpu_torch.models.layers import RowShard
+from gradtts_tpu_torch.models.tts import GradTTS, loss_counts
 
 METRICS = ('loss/total', 'loss/duration', 'loss/prior', 'loss/diffusion',
            'grad_norm/encoder', 'grad_norm/decoder')
@@ -34,25 +37,49 @@ def subtree_clip(model: GradTTS, max_norm: float):
     return tuple(norms)
 
 
-def train_step(model: GradTTS, optimizer, batch: dict, out_size,
+def train_step(model, optimizer, batch: dict, out_size,
                grad_clip_norm: float = 1.0, generator=None,
-               remat: bool = False) -> dict:
+               remat: bool = False, draws=None) -> dict:
     """One step on ``batch`` ({'x', 'x_lengths', 'y', 'y_lengths'} and, for
     a model with speakers, 'spk', on the model's device): losses,
-    backward, clip, Adam. The crop, the diffusion
-    draws and (under ``train()``) the dropout masks come from
-    ``generator``; ``remat`` recomputes the U-Net's forward in the
-    backward (``compute_loss``). Returns the six metrics of the JAX step
-    (:110-117) as 0-d tensors on the device, not fetched."""
+    backward, clip, Adam. The crop, the diffusion draws and (under
+    ``train()``) the dropout masks come from ``generator``, except those
+    of ``draws`` ({'offset', 't', 'z'}, :func:`compute_loss`'s inputs for
+    these rows); ``remat`` recomputes the U-Net's forward in the backward.
+    Returns the six metrics of the JAX step (:110-117) as 0-d tensors on
+    the device, not fetched.
+
+    ``model`` is a :class:`GradTTS` or a ``DistributedDataParallel`` of
+    one over the 'data' axis, whose ranks hold the blocks of a global
+    batch. There every rank draws at the global batch's shape from the
+    same generator and keeps its rows (``RowShard``); the losses are this
+    rank's sums over the global batch's counts (one ``all_reduce`` of
+    :func:`loss_counts`), scaled by the rank count so that DDP's mean of
+    the gradients is the gradient of the global losses, as under the JAX
+    package's mesh; the clip sees those averaged gradients, so both norms
+    and the parameters stay the same on every rank; and the losses
+    reported are the global ones (an ``all_reduce`` of the three)."""
+    net, counts, ranks = model, None, 1
+    if isinstance(model, DistributedDataParallel):
+        net, group = model.module, model.process_group
+        ranks = dist.get_world_size(group)
+        generator = RowShard(generator, dist.get_rank(group), ranks)
+        counts = loss_counts(batch['x_lengths'], batch['y_lengths'],
+                             batch['y'].shape[1], out_size)
+        dist.all_reduce(counts, group=group)
     optimizer.zero_grad(set_to_none=True)
-    res = compute_loss(model, batch['x'], batch['x_lengths'], batch['y'],
-                       batch['y_lengths'], out_size=out_size,
-                       generator=generator, spk=batch.get('spk'),
-                       remat=remat)
+    res = model(batch['x'], batch['x_lengths'], batch['y'],
+                batch['y_lengths'], out_size=out_size, generator=generator,
+                spk=batch.get('spk'), remat=remat, counts=counts,
+                **(draws or {}))
     total = res.dur_loss + res.prior_loss + res.diff_loss
-    total.backward()
-    enc_norm, dec_norm = subtree_clip(model, grad_clip_norm)
+    (total if counts is None else total * ranks).backward()
+    enc_norm, dec_norm = subtree_clip(net, grad_clip_norm)
     optimizer.step()
-    values = (total, res.dur_loss, res.prior_loss, res.diff_loss, enc_norm,
-              dec_norm)
+    losses = (res.dur_loss, res.prior_loss, res.diff_loss)
+    if counts is not None:
+        losses = torch.stack(losses).detach()
+        dist.all_reduce(losses, group=group)
+        total = losses[0] + losses[1] + losses[2]
+    values = (total, *losses, enc_norm, dec_norm)
     return {k: v.detach() for k, v in zip(METRICS, values)}

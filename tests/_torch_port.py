@@ -101,6 +101,20 @@ def text_batch(seed: int, lengths=(16, 11), t_x: int = 16):
     return x, np.asarray(lengths, np.int32)
 
 
+def ragged_batch(seed: int):
+    """A training batch of 4 whose halves differ in length, as two ranks'
+    blocks of a global batch: rows 0-1 long (64 and 60 frames, cropped at
+    32), rows 2-3 short (20 and 24 frames, shorter than the crop)."""
+    rng = np.random.default_rng(seed)
+    xl = np.array([16, 14, 6, 5], np.int32)
+    x = rng.integers(1, N_VOCAB, (4, 16)).astype(np.int32)
+    x *= np.arange(16)[None] < xl[:, None]
+    yl = np.array([64, 60, 20, 24], np.int32)
+    y = rng.standard_normal((4, 64, 80)).astype(np.float32)
+    y *= (np.arange(64)[None, :, None] < yl[:, None, None])
+    return {'x': x, 'x_lengths': xl, 'y': y, 'y_lengths': yl}
+
+
 CMUDICT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), 'resources', 'cmu_dictionary')
 

@@ -4,8 +4,8 @@ batch held against the JAX package's synthesis of the batch that the JAX
 CLI makes (its loader, tail padding and frame budget) with the port's
 noise, at one 64-frame bucket and, with both packages' GroupNorm
 statistics in f64, at the preset's buckets; wavs, plots and speaker
-vectors on the tedlium preset; and ``--mesh-data`` other than 1
-refused."""
+vectors on the tedlium preset; and ``--mesh-data`` 2 refused in one
+process (the two-process run is in ``test_torch_distributed.py``)."""
 
 import json
 import os
@@ -186,11 +186,13 @@ def test_generate_tedlium_writes_wavs_and_plots(tmp_path):
 
 
 def test_generate_refuses_mesh_data(split, tmp_path, capsys):
+    """--mesh-data 2 in one process: data-parallel synthesis needs two
+    processes, launched by torchrun."""
     filelist, ckpt, _, _ = split
     with pytest.raises(SystemExit) as exit_info:
         main(['-o', str(tmp_path / 'out'), '-c', ckpt, '--preset',
               'ljspeech', '--mesh-data', '2', '--cpu', '--set',
               *_overrides(filelist)])
     assert exit_info.value.code == 2
-    assert 'not ported' in capsys.readouterr().err
+    assert 'torchrun --nproc-per-node 2' in capsys.readouterr().err
     assert not (tmp_path / 'out').exists()

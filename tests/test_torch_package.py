@@ -62,9 +62,10 @@ for needed in ('likelihood.ode', 'likelihood.sde', 'nbest.scoring',
                'eval', 'eval.dsp', 'eval.dtw', 'eval.f0', 'eval.mcep',
                'eval.metrics', 'eval.worldnp', 'eval.world', 'eval.mcd_tool',
                'cli.evaluate', 'cli.evaluate_mcd', 'cli.prepare', 'data.sph',
-               'data.corpus'):
+               'data.corpus', 'utils.profiling', 'parallel',
+               'parallel.mesh'):
     assert 'gradtts_tpu_torch.' + needed in names, needed
-assert len(names) >= 54
+assert len(names) >= 57
 # the WORLD backend runs without pyworld and pysptk: the numpy one
 from gradtts_tpu_torch.eval import evaluate_pair, world_available
 import numpy as np

@@ -1,0 +1,117 @@
+"""One rank of a data-parallel run of gradtts_tpu_torch over gloo on the
+CPU, started as torchrun starts a process (``RANK``, ``WORLD_SIZE``,
+``LOCAL_RANK``, ``MASTER_ADDR`` and ``MASTER_PORT`` in the environment);
+the worker of tests/test_torch_distributed.py. It imports no JAX:
+
+    python tests/torch_dist_worker.py SCENARIO SPEC.json
+
+- ``steps``: one train step of a ``DistributedDataParallel`` model over
+  the ranks, for each set-up of SPEC: the tiny model with the given
+  weights, dropout off and the given draws; the same with dropout on and
+  the draws from a seeded generator; each preset (seeded weights) and one
+  with remat. Writes each rank's metrics, parameters, clipped gradients
+  and the names of the parameters that got no grad to
+  ``{out}/{name}_{rank}.pt``.
+- ``train_cli``: ``cli.train.main`` with SPEC's argv, then again with one
+  more step (a resume); writes each run's step and metrics and the final
+  parameters to ``{out}/train_cli_{rank}.pt``.
+- ``generate``: ``cli.generate.main`` with SPEC's argv.
+"""
+
+import json
+import os
+import sys
+
+import numpy as np
+import torch
+from torch.nn.parallel import DistributedDataParallel
+
+from gradtts_tpu_torch.config import get_config
+from gradtts_tpu_torch.models.tts import GradTTS
+from gradtts_tpu_torch.parallel.mesh import (batch_sharding,
+                                             initialize_distributed,
+                                             make_mesh, shard_batch, world)
+from gradtts_tpu_torch.train.loop import batch_to
+from gradtts_tpu_torch.train.state import make_optimizer, train_step
+
+
+def _step(name, model, spec, mesh, batch, generator=None, draws=None,
+          remat=False):
+    ddp = DistributedDataParallel(model, process_group=mesh.get_group('data'))
+    optimizer = make_optimizer(model.parameters())
+    metrics = train_step(ddp, optimizer, batch, spec['out_size'], 1.0,
+                         generator, remat, draws)
+    missing = [n for n, p in model.named_parameters()
+               if p.requires_grad and p.grad is None]
+    torch.save({'metrics': {k: float(v) for k, v in metrics.items()},
+                'params': model.state_dict(), 'missing': missing,
+                'grads': {n: p.grad for n, p in model.named_parameters()
+                          if p.grad is not None}},
+               os.path.join(spec['out'], f'{name}_{world()[0]}.pt'))
+
+
+def steps(spec):
+    mesh = make_mesh(device_type='cpu')
+    rows = batch_sharding(mesh)
+    glob = dict(np.load(spec['batch']))
+    batch = batch_to(shard_batch(mesh, glob), 'cpu')
+    n_vocab = get_config('ljspeech').n_vocab
+    sd = torch.load(spec['state_dict'], weights_only=True)
+    for name, train in (('jax', False), ('dropout', True)):
+        model = GradTTS(n_vocab=n_vocab, **spec['hp'])
+        model.load_state_dict(sd, strict=True)
+        model.train(train)
+        if train:
+            _step(name, model, spec, mesh, batch,
+                  torch.Generator().manual_seed(spec['seed']))
+        else:
+            draws = {k: torch.from_numpy(rows(v)) for k, v in
+                     np.load(spec['draws']).items()}
+            draws['offset'] = draws['offset'].long()
+            _step(name, model, spec, mesh, batch, draws=draws)
+    for name, preset, overrides, remat in spec['setups']:
+        cfg = get_config(preset, **overrides)
+        torch.manual_seed(0)
+        model = GradTTS.from_config(cfg).train()
+        rng = np.random.default_rng(1)
+        b = len(glob['x_lengths'])
+        setup = dict(glob)
+        if cfg.n_spks > 1:
+            setup['spk'] = rng.integers(0, cfg.n_spks, b)
+        elif cfg.n_spks == -1:
+            setup['spk'] = rng.standard_normal(
+                (b, cfg.spk_emb_dim)).astype(np.float32)
+        _step(name, model, spec, mesh,
+              batch_to(shard_batch(mesh, setup), 'cpu'),
+              torch.Generator().manual_seed(spec['seed']), remat=remat)
+
+
+def train_cli(spec):
+    from gradtts_tpu_torch.cli.train import main
+    runs = []
+    for extra in (['--max-steps', '2'], ['--max-steps', '1']):
+        res = main(spec['argv'] + extra)
+        runs.append({'step': res.step, 'metrics': res.metrics})
+    torch.save({'runs': runs, 'params': res.model.state_dict()},
+               os.path.join(spec['out'], f'train_cli_{world()[0]}.pt'))
+
+
+def generate(spec):
+    from gradtts_tpu_torch.cli.generate import main
+    main(spec['argv'])
+
+
+def run(scenario, spec_path):
+    torch.set_num_threads(1)
+    with open(spec_path) as f:
+        spec = json.load(f)
+    if scenario == 'steps':
+        # the CLIs join the process group themselves
+        initialize_distributed(device='cpu')
+    {'steps': steps, 'train_cli': train_cli, 'generate': generate}[
+        scenario](spec)
+    torch.distributed.destroy_process_group()
+
+
+if __name__ == '__main__':
+    run(*sys.argv[1:])
