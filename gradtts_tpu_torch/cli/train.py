@@ -19,9 +19,18 @@ W processes:
   torchrun --standalone --nproc-per-node W -m gradtts_tpu_torch.cli.train \
       --mesh-data W --preset ljspeech [...]
 
-``--mesh-data`` must be the process count (or -1, its default in the
-config); ``--mesh-model`` above 1 (tensor parallelism) is not ported and
-is refused.
+Tensor parallelism splits the weights over a 'model' axis of M processes
+(``--mesh-model M``, the JAX rule of gradtts_tpu/parallel/mesh.py:140):
+D x M processes form a D x M mesh, each data row of M ranks takes the same
+block of the global batch and each rank holds its block of every split
+weight and of its Adam moments:
+
+  torchrun --standalone --nproc-per-node 4 -m gradtts_tpu_torch.cli.train \
+      --mesh-data 2 --mesh-model 2 --preset ljspeech [...]
+
+``--mesh-model`` must divide the process count and ``--mesh-data`` must
+be the process count over it (or -1, its default in the config). The
+checkpoints are written in the one-process layout.
 
 Usage:
   python -m gradtts_tpu_torch.cli.train --preset ljspeech [--log-dir DIR]

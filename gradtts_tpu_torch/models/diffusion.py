@@ -18,6 +18,14 @@ kernel pair (K2 + K3), both autograd Functions: the attention's backward is
 the kernel pair K4 + K5, the norm's recomputes its plain version. Parameter
 names follow the reference torch
 ``state_dict`` (``downs.0.2.fn.fn.to_qkv.weight``, ...).
+
+Tensor parallelism (``parallel.mesh.shard_model``): every ResnetBlock's
+convs and time-embedding Linear, the attentions' ``to_qkv``/``to_out``,
+the time MLP and the speaker MLP may be split over the 'model' axis along
+their output channels. A split layer computes its block from the whole
+input; elementwise ops and K1 run on the block; the block is gathered
+before the first op that mixes channels (two gathers a ResnetBlock). The
+attention gathers its weights and runs whole on every rank.
 """
 
 import math
@@ -26,9 +34,12 @@ import torch
 from torch import nn
 
 from gradtts_tpu_torch.models.layers import (Conv2d, ConvTranspose2d,
-                                             draw, mish)
-from gradtts_tpu_torch.ops.groupnorm_mish import groupnorm_mish
+                                             draw, mish, output_block,
+                                             split_apply)
+from gradtts_tpu_torch.ops.groupnorm_mish import fits, groupnorm_mish
 from gradtts_tpu_torch.ops.linear_attention import linear_attention_rezero
+from gradtts_tpu_torch.parallel.tensor import (gather_from_model,
+                                               scatter_to_model)
 
 CL = torch.channels_last
 
@@ -61,7 +72,15 @@ class SinusoidalPosEmb(nn.Module):
 
 class Block(nn.Module):
     """conv3x3 -> masked GroupNorm + Mish (kernel K1); ``block.0`` is the
-    conv and ``block.1`` holds the norm's f32 affine parameters."""
+    conv and ``block.1`` holds the norm's f32 affine parameters.
+
+    With its conv split over the 'model' axis it returns this rank's
+    output-channel block: K1 runs on the block with groups / M groups
+    (GroupNorm's statistics are per group, so whole groups a rank give the
+    same numbers) where M divides the groups and K1 takes the block's
+    width (:func:`~gradtts_tpu_torch.ops.groupnorm_mish.fits`); else the
+    blocks are gathered, K1 runs on the whole, and the rank keeps its
+    block."""
 
     def __init__(self, dim: int, dim_out: int, groups: int = 8):
         super().__init__()
@@ -71,11 +90,31 @@ class Block(nn.Module):
     def forward(self, x, mask):
         """x [B, C, F, T] channels_last; mask [B, 1, 1, T] in x's dtype."""
         conv, norm = self.block
+        split = getattr(conv, 'model_split', None)
+        if split is not None:
+            return self._split_forward(x, mask, split)
         h = conv(x * mask).contiguous(memory_format=CL)
         b, _, _, t = mask.shape
         y = groupnorm_mish(h.permute(0, 2, 3, 1), mask.view(b, 1, t, 1),
                            norm.weight, norm.bias, norm.num_groups, norm.eps)
         return y.permute(0, 3, 1, 2)
+
+    def _split_forward(self, x, mask, split):
+        conv, norm = self.block
+        h = output_block(conv, x * mask).contiguous(memory_format=CL)
+        b, _, _, t = mask.shape
+        mask = mask.view(b, 1, t, 1)
+        groups = norm.num_groups // split.size
+        if norm.num_groups % split.size == 0 and fits(h.shape[1], groups):
+            y = groupnorm_mish(h.permute(0, 2, 3, 1), mask,
+                               scatter_to_model(norm.weight, split, 0),
+                               scatter_to_model(norm.bias, split, 0),
+                               groups, norm.eps)
+            return y.permute(0, 3, 1, 2)
+        h = gather_from_model(h, split, 1).contiguous(memory_format=CL)
+        y = groupnorm_mish(h.permute(0, 2, 3, 1), mask, norm.weight,
+                           norm.bias, norm.num_groups, norm.eps)
+        return scatter_to_model(y.permute(0, 3, 1, 2), split, 1)
 
 
 class ResnetBlock(nn.Module):
@@ -91,10 +130,28 @@ class ResnetBlock(nn.Module):
             else nn.Identity()
 
     def forward(self, x, mask, time_emb):
+        split = getattr(self.block1.block[0], 'model_split', None)
+        if split is not None:
+            return self._split_forward(x, mask, time_emb, split)
         h = self.block1(x, mask)
         h = h + self.mlp(time_emb)[:, :, None, None].to(h.dtype)
         h = self.block2(h, mask)
         return h + self.res_conv(x * mask)
+
+    def _split_forward(self, x, mask, time_emb, split):
+        """Every layer split over the 'model' axis (they share dim_out):
+        block1's block plus the time-embedding block, gathered for block2;
+        block2's block plus the residual's, gathered."""
+        h = self.block1(x, mask)
+        emb = output_block(self.mlp[1], mish(time_emb))
+        h = gather_from_model(h + emb[:, :, None, None].to(h.dtype), split, 1)
+        h = self.block2(h.contiguous(memory_format=CL), mask)
+        if isinstance(self.res_conv, nn.Identity):
+            res = scatter_to_model(x * mask, split, 1)
+        else:
+            res = output_block(self.res_conv, x * mask)
+        return gather_from_model(h + res, split, 1).contiguous(
+            memory_format=CL)
 
 
 class LinearAttention(nn.Module):
@@ -133,16 +190,25 @@ class Residual(nn.Module):
         attn = self.fn.fn
         hidden = attn.heads * attn.dim_head
         c = x.shape[1]
-        w = attn.to_qkv.weight
+        w, w_out = attn.to_qkv.weight, attn.to_out.weight
         # under autograd the f32 weights go in (their grads come back in
         # f32, as in the JAX package); else the kept cast to x's dtype
         if not (torch.is_grad_enabled() and w.requires_grad):
             w = attn.to_qkv.cast('weight', x.dtype)
+        # split over the 'model' axis, the weights are gathered and every
+        # rank runs the whole attention: a block of to_qkv's outputs is
+        # not whole heads, and K2-K5 are built for heads x dim_head = 128
+        split = getattr(attn.to_qkv, 'model_split', None)
+        if split is not None:
+            w = gather_from_model(w, split, 0)
+        split = getattr(attn.to_out, 'model_split', None)
+        if split is not None:
+            w_out = gather_from_model(w_out, split, 0)
         w = w.view(3 * hidden, c).t()                            # [C, 3H]
         y = linear_attention_rezero(
             x.contiguous(memory_format=CL).permute(0, 2, 3, 1),
             w[:, :hidden], w[:, hidden:2 * hidden], w[:, 2 * hidden:],
-            attn.to_out.weight.view(c, hidden).t(), attn.to_out.bias,
+            w_out.view(c, hidden).t(), attn.to_out.bias,
             self.fn.g, attn.dim_head)
         return y.permute(0, 3, 1, 2)
 
@@ -224,13 +290,13 @@ class GradLogPEstimator2d(nn.Module):
 
     def forward(self, x, mask, mu, t, spk=None):
         dtype = self.compute_dtype
-        t_emb = self.mlp(self.time_pos_emb(t, scale=self.pe_scale))
+        t_emb = _mlp(self.mlp, self.time_pos_emb(t, scale=self.pe_scale))
         chans = [mu.transpose(1, 2), x.transpose(1, 2)]
         if self.n_spks > 1:
             if spk is None:
                 raise ValueError(f'a {self.n_spks}-speaker estimator needs '
                                  'the speaker embedding spk')
-            s = self.spk_mlp(spk.float())                       # [B, F]
+            s = _mlp(self.spk_mlp, spk.float())                 # [B, F]
             chans.append(s[:, :, None].expand(-1, -1, x.shape[1]))
         h = torch.stack(chans, dim=1)
         h = h.to(dtype).contiguous(memory_format=CL)         # [B, 2|3, F, T]
@@ -260,6 +326,12 @@ class GradLogPEstimator2d(nn.Module):
         h = self.final_block(h, m)
         out = (self.final_conv(h * m) * m).float()              # [B, 1, F, T]
         return out[:, 0].transpose(1, 2)
+
+
+def _mlp(seq, x):
+    """``seq(x)`` of a Linear -> Mish -> Linear ``nn.Sequential``, each
+    Linear split over the 'model' axis or whole (``split_apply``)."""
+    return split_apply(seq[2], mish(split_apply(seq[0], x)))
 
 
 class Diffusion(nn.Module):

@@ -6,6 +6,12 @@ f32, cast the activations to their compute dtype where the JAX modules do,
 and the convolutions below use their f32 weights in the dtype of their
 input (:class:`CastAtUse`). Norms compute in f32, and dropout draws its keep mask
 from an explicit generator.
+
+Tensor parallelism (``parallel.mesh.shard_model``): a Linear or
+convolution whose weight is split over the mesh's 'model' axis carries a
+``model_split`` record. :func:`output_block` computes its output-channel
+block from the whole input, and :func:`split_apply` gathers the blocks;
+a layer with no record runs as it always does.
 """
 
 from typing import NamedTuple
@@ -13,6 +19,10 @@ from typing import NamedTuple
 import torch
 from torch import nn
 from torch.nn import functional as F
+
+from gradtts_tpu_torch.parallel.tensor import (copy_to_model,
+                                               gather_from_model,
+                                               scatter_to_model)
 
 
 def mish(x: torch.Tensor) -> torch.Tensor:
@@ -127,3 +137,29 @@ class ChannelLayerNorm(nn.Module):
         y = (x32 - mean) * torch.rsqrt(var + self.eps)
         y = y * self.gamma.view(1, -1, 1) + self.beta.view(1, -1, 1)
         return y.to(x.dtype)
+
+
+def output_block(layer: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """The output-channel block of a split Linear or convolution (``layer``
+    with a ``model_split``) from the whole input ``x``: this rank's weight
+    block and its block of the replicated bias, added inside the layer's
+    call as the whole layer adds it (one rounding in a bf16 conv). The
+    input's gradient is summed over the 'model' ranks."""
+    split = layer.model_split
+    x = copy_to_model(x, split)
+    b = (None if layer.bias is None
+         else scatter_to_model(layer.bias, split, 0))
+    if isinstance(layer, nn.Linear):
+        return F.linear(x, layer.weight, b)
+    return layer._conv_forward(x, layer.cast('weight', x.dtype),
+                               None if b is None else b.to(x.dtype))
+
+
+def split_apply(layer: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``layer(x)`` for a Linear or a convolution of this module, whose
+    output channels (dim 1) may be split over the 'model' axis: there the
+    blocks of :func:`output_block` gathered over the axis."""
+    split = getattr(layer, 'model_split', None)
+    if split is None:
+        return layer(x)
+    return gather_from_model(output_block(layer, x), split, 1)

@@ -15,6 +15,13 @@ the attention probabilities, inside the FFN and on each sub-layer output),
 active under ``train()`` only and drawn from the ``generator`` passed down
 from :meth:`TextEncoder.forward`. The duration predictor reads a detached
 copy of the encoder output (``stop_gradient``, :511).
+
+Under tensor parallelism the attention's ``conv_q/k/v/o`` and the FFN's
+``conv_1``/``conv_2`` may be split over the 'model' axis
+(``models.layers.split_apply``): each computes its output-channel block
+(its bias block added in the conv) from the whole input, gathered right
+after the conv. The attention, the ReLU and every dropout run on whole
+tensors, so every 'model' rank draws the same masks.
 """
 
 import math
@@ -23,7 +30,7 @@ import torch
 from torch import nn
 
 from gradtts_tpu_torch.models.layers import (ChannelLayerNorm, Conv1d,
-                                             dropout)
+                                             dropout, split_apply)
 from gradtts_tpu_torch.ops.seq import sequence_mask
 
 
@@ -132,8 +139,8 @@ class MultiHeadAttention(nn.Module):
         def heads(y):                                   # -> [B, H, T, D] f32
             return y.float().reshape(b, h, d, t).transpose(2, 3)
 
-        q, k, v = heads(self.conv_q(x)), heads(self.conv_k(x)), \
-            heads(self.conv_v(x))
+        q, k, v = (heads(split_apply(conv, x)) for conv in
+                   (self.conv_q, self.conv_k, self.conv_v))
         key_rel = relative_embeddings(self.emb_rel_k.float(), t,
                                       self.window_size)
         scores = (q @ k.transpose(2, 3)) / math.sqrt(d)
@@ -146,7 +153,7 @@ class MultiHeadAttention(nn.Module):
                                         self.window_size)
         out = p_attn @ v + absolute_to_relative(p_attn) @ value_rel[None]
         out = out.transpose(2, 3).reshape(b, c, t).to(x.dtype)
-        return self.conv_o(out)
+        return split_apply(self.conv_o, out)
 
 
 class FFN(nn.Module):
@@ -163,9 +170,9 @@ class FFN(nn.Module):
                                 padding=pad)
 
     def forward(self, x, x_mask, generator=None):
-        x = torch.relu(self.conv_1(x * x_mask))
+        x = torch.relu(split_apply(self.conv_1, x * x_mask))
         x = dropout(x, self.p_dropout, self.training, generator)
-        return self.conv_2(x * x_mask) * x_mask
+        return split_apply(self.conv_2, x * x_mask) * x_mask
 
 
 class Encoder(nn.Module):

@@ -52,13 +52,19 @@ def groupnorm_mish_plain(x, mask, gamma, beta, groups: int = 8,
     return (mish_f32(y) * mask.float()).to(x.dtype)
 
 
+def fits(channels: int, groups: int) -> bool:
+    """Whether the kernel takes ``channels`` channels in ``groups`` groups."""
+    return channels in _CHANNELS and 0 < groups <= 128 \
+        and channels % groups == 0
+
+
 def _check(x, mask, gamma, beta, groups):
     if x.dim() != 4:
         raise ValueError(f'groupnorm_mish: x must be [B, F, T, C], got {tuple(x.shape)}')
     B, F, T, C = x.shape
     if x.dtype not in _build.DTYPE_CODES:
         raise TypeError(f'groupnorm_mish: unsupported dtype {x.dtype}')
-    if C not in _CHANNELS or not 0 < groups <= 128 or C % groups:
+    if not fits(C, groups):
         raise ValueError(f'groupnorm_mish: C={C}, groups={groups} not supported')
     if not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError('groupnorm_mish: x must be contiguous and 16-byte aligned')

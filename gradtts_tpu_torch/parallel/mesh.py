@@ -2,15 +2,18 @@
 
 Counterpart of gradtts_tpu/parallel/mesh.py (``initialize_distributed``
 :19, ``multihost_barrier`` :54, ``make_mesh`` :82, ``batch_sharding`` :96,
-``shard_batch`` :106, ``replicated`` :162). Where the JAX package runs one
+``shard_batch`` :106, ``param_pspec`` :140, ``param_shardings`` :154,
+``replicated`` :162). Where the JAX package runs one
 program over a mesh of devices, the port runs one process a GPU, launched
 by ``torchrun``: the processes join one process group, the mesh is a
 ``DeviceMesh`` over their ranks, and data-parallel training wraps the
 model in ``DistributedDataParallel`` over the 'data' axis. Rank r takes
 the r-th contiguous block of every global batch, the block that
 ``P('data')`` places on device r. The tensor-parallel rules
-(``param_pspec`` :140, ``param_shardings`` :154) are not ported: a
-'model' axis above 1 is refused by the trainer.
+(``param_pspec``, ``param_shardings``) are :func:`split_dim`
+and :func:`shard_model`: on a 'model' axis of M ranks each rank holds
+block j (its 'model' coordinate) of every weight the rule splits, and the
+split layers run the collectives of ``parallel.tensor``.
 """
 
 import datetime
@@ -20,7 +23,11 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch import nn
 from torch.distributed.device_mesh import DeviceMesh
+
+from gradtts_tpu_torch.parallel.tensor import ModelSplit, block
+from gradtts_tpu_torch.utils.convert import flax_path
 
 AXES = ('data', 'model')
 # a gloo group beside an NCCL default group, for monitored_barrier, keyed
@@ -173,3 +180,59 @@ def replicated(mesh: DeviceMesh, module: torch.nn.Module) -> torch.nn.Module:
         for t in [*module.parameters(), *module.buffers()]:
             dist.broadcast(t, src, group=group)
     return module
+
+
+# --- parameter sharding rules (tensor parallelism) ------------------------
+
+# The JAX package's hints (gradtts_tpu/parallel/mesh.py:135): substrings of
+# a parameter's path in its param tree whose kernels are split over the
+# 'model' axis, along their output channels.
+_TP_HINTS = ('ffn_layers', 'conv_q', 'conv_k', 'conv_v', 'conv_o',
+             'to_qkv', 'to_out', 'block1', 'block2', 'res_conv',
+             'mlp_dense', 'spk_mlp', 'mlp_0', 'mlp_2')
+
+
+def split_dim(name: str, shape, model_size: int) -> Optional[int]:
+    """The torch dim over which a ``model_size``-wide 'model' axis splits the
+    GradTTS parameter ``name`` (a ``state_dict`` key) of ``shape``, or None
+    where every rank holds it whole: ``param_pspec`` (:140) on the same
+    parameter. A kernel of rank 2 or more whose path in the JAX param tree
+    (``utils.convert.flax_path``) holds a hint is split over its output
+    channels where they divide by ``model_size``: flax's last axis,
+    torch's dim 0 of the Conv1d, Conv2d and Linear weights that the hints
+    name."""
+    if model_size <= 1:
+        return None
+    path, _ = flax_path(name)
+    if (len(shape) >= 2 and path[-1] == 'kernel'
+            and any(h in '/'.join(path) for h in _TP_HINTS)
+            and shape[0] % model_size == 0):
+        return 0
+    return None
+
+
+def shard_model(model: nn.Module, mesh: DeviceMesh) -> nn.Module:
+    """Splits ``model`` (a full GradTTS, the same on every rank) over the
+    mesh's 'model' axis, in place: each parameter that :func:`split_dim`
+    splits becomes this rank's contiguous block j of M along its split
+    dim (j its 'model' coordinate), and its module records the split
+    (``model_split``, a ``parallel.tensor.ModelSplit``) that its forward
+    reads. Shard before ``DistributedDataParallel`` and the optimizer
+    see the parameters. A one-wide axis leaves ``model`` as it is.
+    Returns ``model``."""
+    size = mesh.size(AXES.index('model'))
+    if size == 1:
+        return model
+    at = ModelSplit(mesh.get_group('model'), mesh.get_local_rank('model'),
+                    size, 0)
+    for name, p in list(model.named_parameters()):
+        dim = split_dim(name, p.shape, size)
+        if dim is None:
+            continue
+        owner, _, leaf = name.rpartition('.')
+        module = model.get_submodule(owner)
+        module.model_split = at._replace(dim=dim)
+        setattr(module, leaf, nn.Parameter(
+            block(p.detach(), at, dim).clone(),
+            requires_grad=p.requires_grad))
+    return model

@@ -36,7 +36,18 @@ shapes on every rank). A step then equals one process's step on the
 global batch (``train.state.train_step``: the draws at the global shape,
 the losses normalized by the global counts). Rank 0 alone writes the
 logs, the previews and the checkpoints; every rank resumes from the same
-file. The 'model' axis (tensor parallelism) is not ported.
+file.
+
+Tensor parallelism (:104, 163-166): with ``train.mesh_model`` M above 1
+the W ranks form a (W / M) x M mesh. Every rank builds the full model
+from ``train.seed`` (and loads a checkpoint whole), then keeps its block
+of each weight that the JAX rule splits (``parallel.mesh.shard_model``);
+the optimizer holds Adam's moments of those blocks. DDP runs over the
+'data' axis and the loader's rows follow the 'data' coordinate, so the
+M ranks of a 'model' group take the same rows. Checkpoints and previews
+gather the blocks: the checkpoint is written in the one-process layout
+(``cli.inference -c`` and a run under any M resume from it), and rank 0
+synthesizes the previews from the full weights.
 """
 
 import logging
@@ -54,7 +65,11 @@ from gradtts_tpu_torch.data.dataset import (BatchCollate, DataLoader,
                                             dataset_from_config)
 from gradtts_tpu_torch.models.tts import (GradTTS, set_compute_dtype,
                                           synthesize)
-from gradtts_tpu_torch.parallel.mesh import make_mesh, world
+from gradtts_tpu_torch.parallel.mesh import make_mesh, shard_model, world
+from gradtts_tpu_torch.parallel.tensor import (full_optimizer_state,
+                                               full_state_dict,
+                                               optimizer_state_blocks,
+                                               split_parameters)
 from gradtts_tpu_torch.train.checkpoint import (restore_checkpoint,
                                                 save_checkpoint)
 from gradtts_tpu_torch.train.state import METRICS, make_optimizer, train_step
@@ -161,22 +176,25 @@ def batch_to(batch: dict, device) -> dict:
 
 def check_ported(cfg: GradTTSConfig) -> None:
     """Raises ValueError at a mesh the port cannot honour
-    (``gradtts_tpu/train/loop.py:104``): its 'data' axis is the process
-    group's W ranks, one GPU each, so ``train.mesh_data`` must be W or -1;
-    a 'model' axis (``train.mesh_model`` above 1, tensor parallelism) is
-    not ported."""
+    (``gradtts_tpu/train/loop.py:104``, ``make_mesh``'s reasons): the
+    mesh is the process group's W ranks, one GPU each, so
+    ``train.mesh_model`` M must divide W and ``train.mesh_data`` must be
+    W / M or -1."""
     t = cfg.train
     ranks = world()[1]
-    if t.mesh_data not in (-1, ranks):
+    if t.mesh_model < 1 or ranks % t.mesh_model:
         raise ValueError(
-            f'train.mesh_data={t.mesh_data} needs as many processes, one a '
-            f'GPU, and this run has {ranks}: launch with torchrun '
-            f'--nproc-per-node {t.mesh_data} (or set train.mesh_data=-1)')
-    if t.mesh_model != 1:
-        raise ValueError(f'train.mesh_model={t.mesh_model} (a model axis, '
-                         'tensor parallelism) is not ported to '
-                         'gradtts_tpu_torch yet; use python -m '
-                         'gradtts_tpu.cli.train')
+            f'train.mesh_model={t.mesh_model}: the model axis must divide '
+            f'the process count {ranks} (one process a GPU): launch with '
+            f'torchrun --nproc-per-node a multiple of {t.mesh_model}')
+    if t.mesh_data not in (-1, ranks // t.mesh_model):
+        need = t.mesh_data * t.mesh_model
+        raise ValueError(
+            f'train.mesh_data={t.mesh_data} with train.mesh_model='
+            f'{t.mesh_model} needs {need} processes, one a GPU, and this '
+            f'run has {ranks} (mesh {t.mesh_data}x{t.mesh_model} != {ranks} '
+            f'devices): launch with torchrun --nproc-per-node {need} (or '
+            'set train.mesh_data=-1)')
 
 
 def use_device_mel(cfg: GradTTSConfig, device) -> bool:
@@ -249,8 +267,9 @@ def train(cfg: GradTTSConfig, n_epochs: Optional[int] = None,
           resume: bool = True, loader=None, device=None,
           synthesis_every_epoch: bool = True) -> TrainResult:
     """Trains per ``cfg`` on ``device`` (default ``cuda``, the current
-    CUDA device) and returns the final step, model, optimizer, generator
-    and the last epoch's mean metrics. ``loader`` (an iterable of collated
+    CUDA device) and returns the final step, model (this rank's blocks
+    under tensor parallelism), optimizer, generator and the last epoch's
+    mean metrics. ``loader`` (an iterable of collated
     batches, this rank's rows of each global batch in a multi-process run)
     replaces the dataset of ``cfg``, and with it the previews;
     ``max_steps`` bounds the steps of this call; ``synthesis_every_epoch``
@@ -261,13 +280,12 @@ def train(cfg: GradTTSConfig, n_epochs: Optional[int] = None,
     n_epochs = n_epochs if n_epochs is not None else cfg.train.n_epochs
     device = torch.device(device or 'cuda')
     lead = world()[0] == 0
+    dtype = torch.bfloat16 if cfg.train.use_bf16_compute else torch.float32
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(cfg.train.seed)      # the initial weights
         model = GradTTS.from_config(cfg)
     model = model.to(device).train()
-    set_compute_dtype(model, torch.bfloat16 if cfg.train.use_bf16_compute
-                      else torch.float32)
-    optimizer = make_optimizer(model.parameters(), cfg.train.learning_rate)
+    set_compute_dtype(model, dtype)
     generator = torch.Generator(device=device).manual_seed(cfg.train.seed)
 
     start_step = 0
@@ -275,15 +293,23 @@ def train(cfg: GradTTSConfig, n_epochs: Optional[int] = None,
     payload = restore_checkpoint(ckpt_dir) if resume else None
     if payload is not None:
         model.load_state_dict(payload['model'])
-        optimizer.load_state_dict(payload['optimizer'])
+    mesh = None
+    if dist.is_initialized():
+        mesh = make_mesh(cfg.train.mesh_data, cfg.train.mesh_model,
+                         device_type=device.type)
+        # every rank built the full model from the seed (or the full
+        # checkpoint): its blocks are the one-process weights
+        shard_model(model, mesh)
+    optimizer = make_optimizer(model.parameters(), cfg.train.learning_rate)
+    if payload is not None:
+        optimizer.load_state_dict(optimizer_state_blocks(
+            payload['optimizer'], optimizer, model))
         generator.set_state(payload['generator'])
         start_step = int(payload['step'])
         log.info('resumed from step %d', start_step)
 
     net, shard = model, None
-    if dist.is_initialized():
-        mesh = make_mesh(cfg.train.mesh_data, cfg.train.mesh_model,
-                         device_type=device.type)
+    if mesh is not None:
         shard = (mesh.get_local_rank('data'), mesh.size(0))
         ids = None
         if device.type == 'cuda':
@@ -294,6 +320,9 @@ def train(cfg: GradTTSConfig, n_epochs: Optional[int] = None,
         net = DistributedDataParallel(model, device_ids=ids,
                                       process_group=mesh.get_group('data'))
         log.info('data parallel: rank %d of %d', *shard)
+        if mesh.size(1) > 1:
+            log.info('tensor parallel: block %d of %d',
+                     mesh.get_local_rank('model'), mesh.size(1))
 
     dataset = None
     if loader is None:
@@ -313,10 +342,15 @@ def train(cfg: GradTTSConfig, n_epochs: Optional[int] = None,
         test_items = dataset.sample_test_batch(cfg.train.test_size)
     metrics_log = MetricsLogger(log_dir, METRICS, enabled=lead)
 
-    def log_previews(at_step):
+    def log_previews(at_step, state_dict):
+        preview = model
+        if split_parameters(model):         # synthesize from the full weights
+            preview = GradTTS.from_config(cfg)
+            preview.load_state_dict(state_dict)
+            preview = set_compute_dtype(preview.to(device), dtype)
         images = {}
         for i, (y_enc, y_dec, attn) in enumerate(
-                synthesis_preview(cfg, model, test_items)):
+                synthesis_preview(cfg, preview, test_items)):
             for name, mat in (('generated_enc', y_enc.T),
                               ('generated_dec', y_dec.T),
                               ('alignment', attn)):
@@ -352,11 +386,13 @@ def train(cfg: GradTTSConfig, n_epochs: Optional[int] = None,
                     f'({cfg.data.train_filelist_path!r}) and batch_size '
                     f'({cfg.train.batch_size}) against the dataset size')
             if (epoch + 1) % cfg.train.save_every == 0:
+                # the one-process layout: every rank gathers the blocks
+                state_dict = full_state_dict(model)
                 if test_items is not None:
-                    log_previews(step)
+                    log_previews(step, state_dict)
                 save_checkpoint(ckpt_dir, step, {
-                    'model': model.state_dict(),
-                    'optimizer': optimizer.state_dict(),
+                    'model': state_dict,
+                    'optimizer': full_optimizer_state(optimizer, model),
                     'generator': generator.get_state()})
             if max_steps is not None and step - start_step >= max_steps:
                 break

@@ -264,6 +264,23 @@ def _estimator_flax_path(parts):
     raise KeyError(f'unhandled estimator key {".".join(parts)}')
 
 
+def flax_path(key: str):
+    """A GradTTS ``state_dict`` key -> (its path in the JAX package's param
+    tree, the layout kind of :data:`_TO_FLAX`):
+    'decoder.estimator.mid_block1.mlp.1.weight' -> (('estimator',
+    'mid_block1', 'mlp_dense', 'kernel'), 'dense')."""
+    top, *parts = key.split('.')
+    if top == 'encoder':
+        path, kind = _encoder_flax_path(parts)
+        return ('encoder',) + path, kind
+    if top == 'decoder' and parts[0] == 'estimator':
+        path, kind = _estimator_flax_path(parts[1:])
+        return ('estimator',) + path, kind
+    if key == 'spk_emb.weight':
+        return ('spk_emb', 'embedding'), None
+    raise KeyError(f'unhandled state_dict key {key}')
+
+
 def state_dict_to_flax_params(state_dict) -> dict:
     """A reference-layout GradTTS ``state_dict`` -> the JAX package's param
     tree ``{'params': ...}`` of f32 numpy arrays: the exact inverse of
@@ -271,23 +288,54 @@ def state_dict_to_flax_params(state_dict) -> dict:
     ``.npz`` (``utils.io.save_params_npz``) for the JAX CLIs."""
     tree = {}
     for key, value in state_dict.items():
-        top, *parts = key.split('.')
-        if top == 'encoder':
-            path, kind = _encoder_flax_path(parts)
-            path = ('encoder',) + path
-        elif top == 'decoder' and parts[0] == 'estimator':
-            path, kind = _estimator_flax_path(parts[1:])
-            path = ('estimator',) + path
-        elif key == 'spk_emb.weight':
-            path, kind = ('spk_emb', 'embedding'), None
-        else:
-            raise KeyError(f'unhandled state_dict key {key}')
+        path, kind = flax_path(key)
         w = torch.as_tensor(value).detach().cpu().float().numpy()
         node = tree
         for p in path[:-1]:
             node = node.setdefault(p, {})
         node[path[-1]] = np.array(_TO_FLAX[kind](w), order='C')
     return {'params': tree}
+
+
+def shard_state_dict(state_dict, index: int, size: int) -> dict:
+    """The blocks that rank ``index`` of a ``size``-wide 'model' axis holds
+    of a full GradTTS ``state_dict``: each tensor that the split rule
+    (``parallel.mesh.split_dim``) splits cut to its ``index``-th
+    contiguous block along its split dim, every other tensor as it is.
+    With :func:`flax_params_to_state_dict` it takes the JAX package's
+    params to any rank's blocks."""
+    # parallel.mesh reads this module's key map: imported at the call
+    from gradtts_tpu_torch.parallel.mesh import split_dim
+    out = {}
+    for key, value in state_dict.items():
+        dim = split_dim(key, value.shape, size)
+        if dim is None:
+            out[key] = value
+        else:
+            n = value.shape[dim] // size
+            out[key] = value.narrow(dim, index * n, n).clone()
+    return out
+
+
+def gather_state_dict(blocks) -> dict:
+    """The inverse of :func:`shard_state_dict`: the full ``state_dict`` from
+    the M ranks' ``state_dict``s, ``blocks[j]`` rank j's, each split
+    tensor the concatenation of its blocks. A tensor that the rule splits
+    by name whose block width does not divide by M could also be one that
+    the rule kept whole (its full width does not divide by M): it raises
+    ``ValueError``."""
+    from gradtts_tpu_torch.parallel.mesh import split_dim
+    size = len(blocks)
+    out = {}
+    for key, value in blocks[0].items():
+        full = (value.shape[0] * size, *value.shape[1:])
+        dim = split_dim(key, full, size)
+        if dim is not None and value.shape[dim] % size:
+            raise ValueError(f'{key}: a block of width {value.shape[dim]} '
+                             f'on a {size}-wide model axis may be whole')
+        out[key] = value if dim is None else torch.cat(
+            [b[key] for b in blocks], dim)
+    return out
 
 
 def detect_encoder_speaker(state_dict, n_enc_channels: int) -> bool:

@@ -162,7 +162,7 @@ def test_parts_over_the_global_counts_sum_to_the_global_losses():
     (1, 2, 1, 'torchrun --nproc-per-node 2'),
     (4, 2, 1, 'torchrun --nproc-per-node 2'),
     (4, 1, 1, 'torchrun --nproc-per-node 1'),
-    (4, 4, 2, 'mesh_model=2')])
+    (4, 4, 2, 'mesh_model=2'), (4, 2, 2, None), (2, -1, 2, None)])
 def test_trainer_takes_the_process_count_as_its_data_axis(
         monkeypatch, ranks, mesh_data, mesh_model, refused):
     monkeypatch.setattr(loop, 'world', lambda: (0, ranks))

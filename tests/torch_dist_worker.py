@@ -1,5 +1,5 @@
-"""One rank of a data-parallel run of gradtts_tpu_torch over gloo on the
-CPU, started as torchrun starts a process (``RANK``, ``WORLD_SIZE``,
+"""One rank of a data- or tensor-parallel run of gradtts_tpu_torch over
+gloo on the CPU, started as torchrun starts a process (``RANK``, ``WORLD_SIZE``,
 ``LOCAL_RANK``, ``MASTER_ADDR`` and ``MASTER_PORT`` in the environment);
 the worker of tests/test_torch_distributed.py. It imports no JAX:
 
@@ -16,6 +16,14 @@ the worker of tests/test_torch_distributed.py. It imports no JAX:
   more step (a resume); writes each run's step and metrics and the final
   parameters to ``{out}/train_cli_{rank}.pt``.
 - ``generate``: ``cli.generate.main`` with SPEC's argv.
+- ``tp_steps``: tensor parallelism on a (data, model) mesh of SPEC's
+  shape: the ``steps`` of the given weights (dropout off with the given
+  draws, then on) with the model split over 'model'
+  (``shard_model``) and DDP over 'data', each rank's parameters and
+  gradients its blocks; with ``functions`` in SPEC first the values and
+  gradients of ``copy_to_model``, ``gather_from_model`` and
+  ``scatter_to_model`` on seeded inputs, to ``{out}/functions_{rank}.pt``.
+- ``cli_runs``: ``cli.train.main`` with each argv of SPEC's ``runs``.
 """
 
 import json
@@ -28,9 +36,13 @@ from torch.nn.parallel import DistributedDataParallel
 
 from gradtts_tpu_torch.config import get_config
 from gradtts_tpu_torch.models.tts import GradTTS
-from gradtts_tpu_torch.parallel.mesh import (batch_sharding,
+from gradtts_tpu_torch.parallel.mesh import (AXES, batch_sharding,
                                              initialize_distributed,
-                                             make_mesh, shard_batch, world)
+                                             make_mesh, shard_batch,
+                                             shard_model, world)
+from gradtts_tpu_torch.parallel.tensor import (ModelSplit, copy_to_model,
+                                               gather_from_model,
+                                               scatter_to_model)
 from gradtts_tpu_torch.train.loop import batch_to
 from gradtts_tpu_torch.train.state import make_optimizer, train_step
 
@@ -46,12 +58,13 @@ def _step(name, model, spec, mesh, batch, generator=None, draws=None,
     torch.save({'metrics': {k: float(v) for k, v in metrics.items()},
                 'params': model.state_dict(), 'missing': missing,
                 'grads': {n: p.grad for n, p in model.named_parameters()
-                          if p.grad is not None}},
+                          if p.grad is not None},
+                'coord': [mesh.get_local_rank(a) for a in AXES]},
                os.path.join(spec['out'], f'{name}_{world()[0]}.pt'))
 
 
-def steps(spec):
-    mesh = make_mesh(device_type='cpu')
+def steps(spec, mesh=None):
+    mesh = mesh or make_mesh(device_type='cpu')
     rows = batch_sharding(mesh)
     glob = dict(np.load(spec['batch']))
     batch = batch_to(shard_batch(mesh, glob), 'cpu')
@@ -61,6 +74,7 @@ def steps(spec):
         model = GradTTS(n_vocab=n_vocab, **spec['hp'])
         model.load_state_dict(sd, strict=True)
         model.train(train)
+        shard_model(model, mesh)
         if train:
             _step(name, model, spec, mesh, batch,
                   torch.Generator().manual_seed(spec['seed']))
@@ -69,7 +83,7 @@ def steps(spec):
                      np.load(spec['draws']).items()}
             draws['offset'] = draws['offset'].long()
             _step(name, model, spec, mesh, batch, draws=draws)
-    for name, preset, overrides, remat in spec['setups']:
+    for name, preset, overrides, remat in spec.get('setups', ()):
         cfg = get_config(preset, **overrides)
         torch.manual_seed(0)
         model = GradTTS.from_config(cfg).train()
@@ -101,15 +115,54 @@ def generate(spec):
     main(spec['argv'])
 
 
+def functions(spec, mesh):
+    """The three Functions on the 'model' axis, on inputs drawn from one
+    seed (the same on every rank): each output and the gradient of its
+    input under a rank-dependent upstream gradient."""
+    split = ModelSplit(mesh.get_group('model'), mesh.get_local_rank('model'),
+                       mesh.size(1), 0)
+    j = split.index
+    rng = np.random.default_rng(spec['seed'])
+    x = torch.from_numpy(rng.standard_normal((2, 8, 3, 5), np.float32))
+    ups = torch.from_numpy(rng.standard_normal((split.size, 2, 8, 3, 5),
+                                               np.float32))
+    out = {}
+    for name, fn, given, upstream in (
+            ('copy', lambda t: copy_to_model(t, split), x, ups[j]),
+            ('gather', lambda t: gather_from_model(t, split, 1),
+             x[:, 4 * j:4 * j + 4].contiguous(
+                 memory_format=torch.channels_last), ups[0]),
+            ('scatter', lambda t: scatter_to_model(t, split, 1), x,
+             ups[j][:, 4 * j:4 * j + 4])):
+        t = given.clone().requires_grad_()
+        y = fn(t)
+        y.backward(upstream)
+        out[name] = {'value': y.detach(), 'grad': t.grad}
+    torch.save(out, os.path.join(spec['out'], f'functions_{world()[0]}.pt'))
+
+
+def tp_steps(spec):
+    mesh = make_mesh(spec['data'], spec['model'], device_type='cpu')
+    if spec.get('functions'):
+        functions(spec, mesh)
+    steps(spec, mesh)
+
+
+def cli_runs(spec):
+    from gradtts_tpu_torch.cli.train import main
+    for argv in spec['runs']:
+        main(argv)
+
+
 def run(scenario, spec_path):
     torch.set_num_threads(1)
     with open(spec_path) as f:
         spec = json.load(f)
-    if scenario == 'steps':
+    if scenario in ('steps', 'tp_steps'):
         # the CLIs join the process group themselves
         initialize_distributed(device='cpu')
-    {'steps': steps, 'train_cli': train_cli, 'generate': generate}[
-        scenario](spec)
+    {'steps': steps, 'train_cli': train_cli, 'generate': generate,
+     'tp_steps': tp_steps, 'cli_runs': cli_runs}[scenario](spec)
     torch.distributed.destroy_process_group()
 
 
