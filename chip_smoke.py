@@ -28,7 +28,8 @@ Phases, each printing one JSON line:
               not a multiple of 32 and a Tx above 512 (the block route);
               untimed, K1-K5 at the tedlium-spk training shapes (B 16,
               128-frame crops), MAS at [16, 192, 384] and K1 at the
-              channel blocks of the tp step (B 16, C / 2, 4 groups);
+              channel blocks of the tp step (B 16, C / 2, 4 groups) and
+              of the likelihood cell split likewise (B 8, 512 frames);
   3. slice    a full-width ljspeech GradTTS with every weight drawn from a
               seed: 10-step synthesis (B 2, Tx 64, Ty 256, f32) on the GPU
               against the same on the CPU (plain versions);
@@ -90,6 +91,8 @@ Phases, each printing one JSON line:
  13. likelihood  score_batch at B 8, Tx 128, Ty 512, 10-step Euler, bf16
               compute: hypotheses/s, launches per call, the device share;
  14. adaptive  one adaptive Dormand-Prince score_batch (B 2, Ty 256).
+     Phases 12, 14, 15, 19 and 20 (untimed, and light on the host) run
+     while phase ddp's subprocesses work, in that order.
  15. checkpoint_slice  the seeded ljspeech checkpoint exported to .npz
               (utils.io, no tensorstore on the card's machine), and
               cli.inference -c x.npz against -c x.pt: the same mels, bit
@@ -125,6 +128,15 @@ Phases, each printing one JSON line:
               process's step on the same batch, the replicated parameters
               bit-equal, the blocks the one-process parameters' (f32),
               the elements, peak memory, wall time and launches a rank;
+     tp_likelihood  in the same two rank processes, after tp: the
+              likelihood cell's score_batch (B 8, Tx 128, Ty 512, 2 Euler
+              steps, bf16 and f32) on a data 1 x model 2 mesh (the model
+              split, forward mode through the split layers) and on a data
+              2 x model 1 mesh (B 4 a rank), the probe drawn at the global
+              shape, against this process's score on the global batch;
+              the model ranks against each other; phase adaptive's call
+              on the data 2 mesh (one row a rank): its nfe, converged and
+              scores; launches, wall s and peak memory a rank;
      ddp_generate  cli.generate --mesh-data 2 (two ranks on the card over
               gloo) against the generate phase's --mesh-data 1 mels.
  21. evaluate  python -m gradtts_tpu_torch.cli.evaluate on the seeded
@@ -148,10 +160,11 @@ Phases, each printing one JSON line:
               weights, under cuDNN's deterministic algorithms.
 Each timed path (synth, dpm8, waveform, multispeaker, train,
 vocoder_train, train_spk, likelihood) and each path of phases 15-23, ddp,
-tp and ddp_generate sets the launch counts to 0 just before its main run and
-reads them just after (the GAN step launches no hand kernel; a rank of
-ddp, tp or ddp_generate counts its own); phases 15-21 run their CLIs in this
-process, so that their launches are counted. Wall times are the median of
+tp, tp_likelihood and ddp_generate sets the launch counts to 0 just before
+its main run and reads them just after (the GAN step launches no hand
+kernel; a rank of ddp, tp, tp_likelihood or ddp_generate counts its own);
+phases 15-21 run their CLIs in this process, so that their launches are
+counted. Wall times are the median of
 utils.profiling.time_jitted, audio-s/s its Throughput, and the device
 share a utils.profiling.trace capture. Then each phase's
 seconds ({"phase_seconds": {...}}), the total seconds, the card's name
@@ -167,6 +180,7 @@ import json
 import math
 import os
 import re
+import concurrent.futures
 import subprocess
 import sys
 import time
@@ -212,6 +226,9 @@ LIK_LEVELS = [((80, 512, 64), 5, 1), ((40, 256, 128), 4, 1),
               ((20, 128, 256), 8, 2), ((20, 128, 128), 4, 1),
               ((40, 256, 64), 4, 1)]
 LIK_MAS_SHAPE = (LIK_B, LIK_TX, LIK_TY)
+# K1 on the channel blocks of the likelihood cell split over 'model'
+# (tp_likelihood): the first three levels' blocks at B 8, Ty 512
+LIK_BLOCK_LEVELS = ((80, 512, 32), (40, 256, 64), (20, 128, 128))
 # MAS checked untimed: the largest buckets (512 tokens, 2048 frames), a Tx
 # that is not a multiple of 32 (and a Ty not one of 4), and a Tx above 512,
 # which takes the block-wide route
@@ -765,21 +782,31 @@ def phase_kernels(device):
 
 
 def _kernel_k1_blocks(device, rng, st):
-    """K1 against its plain version at the channel blocks that the tp
-    step's Blocks give it (B 16, TP_BLOCK_LEVELS, 8 / TP_MODEL groups),
-    f32 and bf16, untimed."""
+    """K1 against its plain version at the channel blocks that the Blocks
+    give it on a 'model' axis of TP_MODEL, 8 / TP_MODEL groups, f32 and
+    bf16, untimed: the tp step's (B 16, TP_BLOCK_LEVELS) and the
+    likelihood cell's (B 8, LIK_BLOCK_LEVELS), the last two items of each
+    batch 3/4 and 1/3 long."""
+    for path, bsz, levels, frames in (
+            ('tp', TRAIN_B, TP_BLOCK_LEVELS, 172),
+            ('tp_likelihood', LIK_B, LIK_BLOCK_LEVELS, LIK_TY)):
+        _k1_blocks(device, rng, st, path, bsz, levels, frames)
+
+
+def _k1_blocks(device, rng, st, path, bsz, levels, frames):
     import torch
     from gradtts_tpu_torch.ops import groupnorm_mish as gn
     groups = 8 // TP_MODEL
-    lengths = torch.tensor([172] * (TRAIN_B - 2) + [129, 57], device=device)
-    line = {'phase': 'kernels', 'path': 'tp', 'groups': groups}
-    for F, T, C in TP_BLOCK_LEVELS:
+    lengths = torch.tensor([frames] * (bsz - 2)
+                           + [3 * frames // 4, frames // 3], device=device)
+    line = {'phase': 'kernels', 'path': path, 'groups': groups}
+    for F, T, C in levels:
         for dtype in (torch.float32, torch.bfloat16):
             dn = str(dtype).split('.')[1]
             mask = (torch.arange(T, device=device)[None]
-                    < (lengths[:, None] * T + 171) // 172).to(dtype) \
-                .reshape(TRAIN_B, 1, T, 1)
-            x = ((torch.tensor(rng.standard_normal((TRAIN_B, F, T, C)) * 2,
+                    < (lengths[:, None] * T + frames - 1) // frames).to(
+                dtype).reshape(bsz, 1, T, 1)
+            x = ((torch.tensor(rng.standard_normal((bsz, F, T, C)) * 2,
                                dtype=torch.float32, device=device) + 0.5)
                  .to(dtype) * mask).contiguous()
             gamma, beta = (torch.tensor(rng.standard_normal(C),
@@ -793,7 +820,7 @@ def _kernel_k1_blocks(device, rng, st):
             line[f'{F}x{T}x{C} {dn}'] = {'max_abs_err': err, 'tol': tol,
                                          'ok': ok}
             st['max_abs_err'] = max(st['max_abs_err'], err)
-            require(ok, f'groupnorm_mish {dn} block {(TRAIN_B, F, T, C)} '
+            require(ok, f'groupnorm_mish {dn} block {(bsz, F, T, C)} '
                         f'{groups} groups: max abs err {err} over '
                         f'tolerance {tol}')
     emit(line)
@@ -1513,6 +1540,22 @@ def phase_train_step(device, card, filelist=None, cli=None,
 # 1e-3 relative on score, prior_logp and delta_logp, and 1e-3 of max |z|
 LIK_SLICE_RTOL = 1e-3
 LIK_SLICE_STEPS = 4
+# tp_likelihood: the likelihood cell scored on two ranks (data 1 x model
+# 2, and data 2 x model 1) against one process on the same global batch
+# and probe, with __graft_entry__.py:165's 2 Euler steps. f32: the ranks'
+# convolutions and K1 run on blocks or rows of the same inputs, so only
+# their sums' order differs (the tp step's f32 losses are bit-equal): 1e-5
+# relative, z 1e-5 of its largest. bf16 rounds those sums: the GPU-vs-CPU
+# bound, 1e-3. The adaptive run's scores: 1e-3 (tests/test_torch_
+# likelihood.py's bound for ~60 evaluations); its nfe and converged equal
+LIK_MESH_STEPS = 2
+LIK_MESH_SEED = 3
+LIK_MESH_RTOL = {'float32': 1e-5, 'bfloat16': LIK_SLICE_RTOL}
+# z, of its largest |z|: f32 as above; in bf16 z is not a sum but each
+# element's own drift, rounded to bf16 in the U-Net's last conv, so a sum
+# that rounds the other way moves it by a bf16 ulp (2^-8 relative): two
+# ulps, as K1's bf16 outputs (2.9e-3 in this phase on an H100)
+LIK_MESH_Z_TOL = {'float32': 1e-5, 'bfloat16': 2 ** -7}
 
 
 def _likelihood_batch(cfg, rng, bsz, t_x, t_y, y_lengths):
@@ -1687,7 +1730,7 @@ def phase_likelihood(device, card, ckpt):
         torch.cuda.synchronize()
         return res
 
-    per_call, timing = median_call(run, 3)          # a warm-up, 3 timed
+    per_call, timing = median_call(run, 2)          # a warm-up, 2 timed
     reset_counts()
     res = run()                                     # the main path's run
     counts = read_counts()
@@ -1747,16 +1790,15 @@ ADAPTIVE_TOL, ADAPTIVE_MAX_STEPS = 1e-2, 280
 
 
 def phase_adaptive(device, ckpt):
-    import numpy as np
+    """One adaptive ``score_batch`` (B 2, Ty 256): its result, which
+    phase ddp's two data ranks repeat."""
     import torch
     from gradtts_tpu_torch.config import get_config
     from gradtts_tpu_torch.nbest.scoring import score_batch
 
     cfg = get_config('ljspeech')
     model = _seeded_model(cfg, ckpt, device)
-    rng = np.random.default_rng(8)
-    batch = [a.to(device) for a in _likelihood_batch(cfg, rng, 2, 64, 256,
-                                                     [256, 200])]
+    batch = [a.to(device) for a in _adaptive_batch(cfg)]
     t0 = time.perf_counter()
     res = score_batch(model, *batch, n_euler=0, rtol=ADAPTIVE_TOL,
                       atol=ADAPTIVE_TOL, max_steps=ADAPTIVE_MAX_STEPS,
@@ -1768,6 +1810,7 @@ def phase_adaptive(device, ckpt):
           'seconds': time.perf_counter() - t0})
     require(bool(torch.isfinite(res.score).all()),
             'adaptive: score not finite')
+    return res
 
 
 # ---- the samplers, the speaker set-ups and the vocoder ----------------------
@@ -3289,6 +3332,7 @@ def _rank_train_step(spec):
                         y_shape=list(batch['y'].shape))
             line['seconds_per_step'], line['timing'] = median_call(run, 3)
     line['tp'] = _rank_tp_step(spec, device)
+    line['tp_likelihood'] = _rank_score(spec, device)
     return line
 
 
@@ -3351,9 +3395,103 @@ def _rank_tp_step(spec, device):
                                   if p.grad is not None}}, path)
             entry['saved'] = path
         else:
-            entry['seconds_per_step'], entry['timing'] = median_call(run, 2)
+            entry['seconds_per_step'], entry['timing'] = median_call(run, 1)
         line[compute] = entry
         del ddp, model, optimizer, batch
+    return line
+
+
+def _lik_mesh_batch(cfg):
+    """The likelihood cell's global batch (phase likelihood's)."""
+    import numpy as np
+    return _likelihood_batch(cfg, np.random.default_rng(7), LIK_B, LIK_TX,
+                             LIK_TY, [LIK_TY] * LIK_B)
+
+
+def _adaptive_batch(cfg):
+    """Phase adaptive's batch: B 2, Tx 64, Ty 256, the second row 200
+    frames long."""
+    import numpy as np
+    return _likelihood_batch(cfg, np.random.default_rng(8), 2, 64, 256,
+                             [256, 200])
+
+
+def _score_fields(res):
+    return {k: getattr(res, k) for k in ('score', 'prior_logp',
+                                         'delta_logp', 'z', 'nfe',
+                                         'converged')}
+
+
+def _rank_score(spec, device):
+    """``score_batch`` of the likelihood cell (ljspeech at full width,
+    B 8, Tx 128, Ty 512, LIK_MESH_STEPS Euler steps) on a data 1 x model 2
+    mesh (``shard_model``; the whole batch on both ranks) and on a data 2
+    x model 1 mesh (B 4 a rank), each in bf16 and f32 with the probe drawn
+    at the global shape from one seeded generator (``RowShard``); then the
+    adaptive integrator on the data 2 mesh at phase adaptive's shape,
+    tolerances and probe (one row a rank). Each mesh's first call is a
+    bf16 warm-up, untimed and uncounted: a process's first forward-mode
+    call pays first-use costs that would swamp the timed one. One model a
+    mesh (the compute dtype set a run). Each run's launches counted, its
+    wall seconds and peak memory over what the process held before it
+    (the model's parameters included); its results saved."""
+    import gc
+    import torch
+    from gradtts_tpu_torch.config import get_config
+    from gradtts_tpu_torch.models.layers import RowShard
+    from gradtts_tpu_torch.models.tts import set_compute_dtype
+    from gradtts_tpu_torch.nbest.scoring import score_batch
+    from gradtts_tpu_torch.parallel.mesh import (batch_sharding, make_mesh,
+                                                 shard_model, world)
+
+    cfg = get_config('ljspeech')
+    line = {}
+
+    def run(name, model, mesh, batch, compute, seed, warmup=False, **kw):
+        set_compute_dtype(model, getattr(torch, compute))
+
+        def call():
+            gen = RowShard(torch.Generator(device=device).manual_seed(seed),
+                           mesh.get_local_rank('data'), mesh.size(0))
+            return score_batch(model, *batch, mesh=mesh, generator=gen,
+                               **kw)
+
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        base = torch.cuda.memory_allocated(device)
+        if warmup:
+            call()
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        res = call()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        path = os.path.join(WORK, f'lik_{name}_{compute}_rank{world()[0]}.pt')
+        torch.save({k: v.cpu() if torch.is_tensor(v) else v
+                    for k, v in _score_fields(res).items()}, path)
+        return {'launches': read_counts(), 'seconds': seconds,
+                'peak_bytes': torch.cuda.max_memory_allocated(device) - base,
+                'saved': path}
+
+    for name, shape in (('tp', (1, TP_MODEL)), ('dp', (TP_MODEL, 1))):
+        mesh = make_mesh(*shape, device_type='cuda')
+        rows = batch_sharding(mesh)
+        batch = [rows(a).to(device) for a in _lik_mesh_batch(cfg)]
+        model = shard_model(_seeded_model(cfg, spec['ckpt'], device), mesh)
+        line[name] = {'coord': [mesh.get_local_rank(a)
+                                for a in ('data', 'model')]}
+        for compute in ('bfloat16', 'float32'):
+            line[name][compute] = run(name, model, mesh, batch, compute,
+                                      LIK_MESH_SEED,
+                                      warmup=compute == 'bfloat16',
+                                      n_euler=LIK_MESH_STEPS)
+    # the data 2 mesh's model in f32: phase adaptive's call, a row a rank
+    batch = [rows(a).to(device) for a in _adaptive_batch(cfg)]
+    line['adaptive'] = run('adaptive', model, mesh, batch, 'float32', 0,
+                           n_euler=0, rtol=ADAPTIVE_TOL, atol=ADAPTIVE_TOL,
+                           max_steps=ADAPTIVE_MAX_STEPS)
     return line
 
 
@@ -3423,7 +3561,7 @@ def _held_to_one_process(saved, before, want, grads, device):
             'flat_param_max_err': flat_err}
 
 
-def phase_ddp(device, card):
+def phase_ddp(device, card, ckpt, beside):
     """Data-parallel training of the train cell (ljspeech at full width,
     bf16 compute, f32 parameters, 172-frame crops; the train phase's
     corpus). (a) NCCL, one rank: ``torchrun --standalone --nproc-per-node
@@ -3437,8 +3575,14 @@ def phase_ddp(device, card):
     parameters bit-equal, launches a rank and wall s a step. The torchrun
     run and the two ranks run at once, before the in-process timing; the
     ranks then run the tp step (:func:`_rank_tp_step`, held in
-    :func:`_tp_held`). Returns the launches of the in-process DDP step and
-    those of the tp step's two ranks."""
+    :func:`_tp_held`), and score the likelihood cell on two meshes
+    (:func:`_rank_score`, held in :func:`_lik_mesh_held` against this
+    process, ``ckpt`` its weights). While the subprocesses work, this
+    process runs ``beside()``, which returns phase adaptive's result
+    (the ranks' adaptive run is held to it); a failure there stops the
+    subprocesses. Returns the launches of the in-process DDP step, of the
+    tp step's two ranks, and of the ranks' bf16 scoring on the data 1 x
+    model 2 and the data 2 x model 1 mesh."""
     import shutil
     import torch
     import torch.distributed as dist
@@ -3463,10 +3607,28 @@ def phase_ddp(device, card):
          '--no-previews', '--max-steps', str(TRAIN_STEPS), '--set',
          f'data.train_filelist_path={filelist}'], cwd=REPO,
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-    ranks = _start_ranks('ddp_train', {'filelist': filelist})
-    (_, err), = _finish([torchrun], 'ddp: torchrun cli.train')
-    ranks = _rank_lines(_finish(ranks, 'ddp: gloo ranks'))
-    both_s = time.perf_counter() - t0
+    ranks = _start_ranks('ddp_train', {'filelist': filelist,
+                                       'ckpt': ckpt})
+
+    def finish(procs, what):
+        return _finish(procs, what), time.perf_counter() - t0
+
+    # threads drain the subprocesses' pipes while this process works
+    pool = concurrent.futures.ThreadPoolExecutor(2)
+    waits = [pool.submit(finish, [torchrun], 'ddp: torchrun cli.train'),
+             pool.submit(finish, ranks, 'ddp: gloo ranks')]
+    try:
+        adaptive = beside()
+        beside_s = time.perf_counter() - t0
+    except BaseException:
+        for proc in (torchrun, *ranks):
+            proc.kill()
+        raise
+    finally:
+        pool.shutdown()
+    ((_, err),), torchrun_s = waits[0].result()
+    ranks, ranks_s = waits[1].result()
+    ranks = _rank_lines(ranks)
 
     # (a) torchrun: the plain run's checkpoint and log
     route = re.search(r'input pipeline: (\w+) mels', err)
@@ -3484,7 +3646,8 @@ def phase_ddp(device, card):
     line = {'phase': 'ddp', 'card': card, 'preset': 'ljspeech',
             'batch': TRAIN_B, 'crop': 172,
             'dtype': 'bfloat16 compute, float32 parameters',
-            'seconds_torchrun_and_ranks': both_s,
+            'seconds_torchrun': torchrun_s, 'seconds_ranks': ranks_s,
+            'seconds_beside': beside_s,
             'nccl_one_rank': {
                 'steps': TRAIN_STEPS,
                 'input_pipeline': route.group(0) if route else None,
@@ -3588,7 +3751,124 @@ def phase_ddp(device, card):
          f'{held["param_max_err_beyond_ulp"]} beyond their rounding, of a '
          f'largest update {held["largest_update"]}')]
     _check(line, checks)
-    return ddp_counts, _tp_held(card, [r['tp'] for r in ranks], one, device)
+    return (ddp_counts, _tp_held(card, [r['tp'] for r in ranks], one, device),
+            *_lik_mesh_held(card, [r['tp_likelihood'] for r in ranks],
+                            device, ckpt, adaptive))
+
+
+def _lik_mesh_held(card, ranks, device, ckpt, adaptive):
+    """The tp_likelihood line: each rank's scores on the data 1 x model 2
+    and the data 2 x model 1 mesh against its rows of this process's
+    ``score_batch`` on the global batch with the same probe (computed here
+    once, bf16 and f32), at LIK_MESH_RTOL; the two model ranks against each
+    other; the adaptive run against ``adaptive``. Returns the bf16 runs'
+    launches over both ranks, model 2 then data 2."""
+    import torch
+    from gradtts_tpu_torch.config import get_config
+    from gradtts_tpu_torch.models.tts import set_compute_dtype
+    from gradtts_tpu_torch.nbest.scoring import score_batch
+
+    cfg = get_config('ljspeech')
+    batch = [a.to(device) for a in _lik_mesh_batch(cfg)]
+    line = {'phase': 'tp_likelihood', 'card': card, 'preset': 'ljspeech',
+            'batch': LIK_B, 'tx': LIK_TX, 'ty': LIK_TY,
+            'euler_steps': LIK_MESH_STEPS, 'ranks': ranks}
+    checks = []
+    want = {}
+    for compute in ('bfloat16', 'float32'):
+        model = set_compute_dtype(_seeded_model(cfg, ckpt, device),
+                                  getattr(torch, compute))
+        t0 = time.perf_counter()
+        want[compute] = _score_fields(score_batch(
+            model, *batch, n_euler=LIK_MESH_STEPS,
+            generator=torch.Generator(device=device).manual_seed(
+                LIK_MESH_SEED)))
+        torch.cuda.synchronize()
+        line[f'one_process_{compute}_seconds'] = time.perf_counter() - t0
+    expected = likelihood_counts(LIK_MESH_STEPS)
+    for name in ('tp', 'dp'):
+        for compute in ('bfloat16', 'float32'):
+            tol, w = LIK_MESH_RTOL[compute], want[compute]
+            got = [torch.load(r[name][compute]['saved'], weights_only=True)
+                   for r in ranks]
+            n = LIK_B // (TP_MODEL if name == 'dp' else 1)
+            errs = []
+            for r, g in zip(ranks, got):
+                i = r[name]['coord'][0]
+                errs.append(_score_err(g, w, slice(i * n, (i + 1) * n)))
+            entry = {'max_rel_err': {k: max(e[k] for e in errs)
+                                     for k in errs[0]},
+                     'launches': [r[name][compute]['launches']
+                                  for r in ranks],
+                     'seconds': [r[name][compute]['seconds'] for r in ranks],
+                     'peak_bytes': [r[name][compute]['peak_bytes']
+                                    for r in ranks],
+                     'scores': [g['score'].tolist() for g in got],
+                     'one_process_scores': w['score'].tolist()}
+            what = f'tp_likelihood {name} {compute}'
+            z_tol = LIK_MESH_Z_TOL[compute]
+            checks += [
+                (all(bool(torch.isfinite(g[k]).all()) for g in got
+                     for k in ('score', 'z')), f'{what}: not finite'),
+                (_within(entry['max_rel_err'], tol, z_tol),
+                 f'{what}: the ranks part from one process by '
+                 f'{entry["max_rel_err"]} (bounds {tol}, z {z_tol})'),
+                (all(c == expected for c in entry['launches']),
+                 f'{what}: launches a rank {entry["launches"]}')]
+            if name == 'tp':
+                # both model ranks score the whole batch
+                gap = _score_err(got[1], got[0], slice(None))
+                entry.update(model_ranks_bit_equal=all(
+                    torch.equal(got[0][k], got[1][k])
+                    for k in ('score', 'prior_logp', 'delta_logp', 'z')),
+                    model_ranks_max_rel_err=gap)
+                checks.append((_within(gap, tol, z_tol),
+                               f'{what}: the model ranks part by {gap}'))
+            line[f'{name} {compute}'] = entry
+    got = [torch.load(r['adaptive']['saved'], weights_only=True)
+           for r in ranks]
+    w = _score_fields(adaptive)
+    errs = [_score_err(g, w, slice(i, i + 1), with_z=False)
+            for i, g in enumerate(got)]
+    line['adaptive'] = {
+        'rtol': ADAPTIVE_TOL, 'max_steps': ADAPTIVE_MAX_STEPS,
+        'nfe': [g['nfe'] for g in got], 'one_process_nfe': adaptive.nfe,
+        'converged': [g['converged'] for g in got],
+        'max_rel_err': {k: max(e[k] for e in errs) for k in errs[0]},
+        'seconds': [r['adaptive']['seconds'] for r in ranks],
+        'launches': [r['adaptive']['launches'] for r in ranks]}
+    checks += [
+        (all((g['nfe'], g['converged']) == (adaptive.nfe, adaptive.converged)
+             for g in got), 'tp_likelihood adaptive: nfe and converged '
+                            f'{line["adaptive"]["nfe"]} '
+                            f'{line["adaptive"]["converged"]} against one '
+                            f'process\'s {adaptive.nfe} {adaptive.converged}'),
+        (max(line['adaptive']['max_rel_err'].values()) <= LIK_SLICE_RTOL,
+         'tp_likelihood adaptive: the ranks part from one process by '
+         f'{line["adaptive"]["max_rel_err"]}')]
+    _check(line, checks)
+    return ({k: sum(r[name]['bfloat16']['launches'][k] for r in ranks)
+             for k in TRAIN_COUNTS} for name in ('tp', 'dp'))
+
+
+def _within(errs, tol, z_tol):
+    """``_score_err``'s errors within ``tol``, z within ``z_tol``."""
+    return all(v <= (z_tol if k == 'z' else tol) for k, v in errs.items())
+
+
+def _score_err(got, want, rows, with_z=True):
+    """A rank's scoring fields (on the host) against ``rows`` of
+    ``want``'s: the largest relative difference of score, prior_logp and
+    delta_logp, and (``with_z``) of z against the largest |z| of
+    ``want``."""
+    out = {}
+    for k in ('score', 'prior_logp', 'delta_logp'):
+        w = want[k][rows].cpu()
+        out[k] = float(((got[k] - w).abs() / w.abs()).max())
+    if with_z:
+        out['z'] = float((got['z'] - want['z'][rows].cpu()).abs().max()
+                         / want['z'].abs().max().cpu())
+    return out
 
 
 def _tp_held(card, ranks, one, device):
@@ -4376,24 +4656,32 @@ def main():
                                         ckpt)
         counts['train_spk'], _ = timed(phase_train_spk, device, card)
         timed(phase_likelihood_slice, device, ckpt)
-        timed(phase_nbest_cli, ckpt, spk_ckpt)
         counts['likelihood'] = timed(phase_likelihood, device, card, ckpt)
-        timed(phase_adaptive, device, ckpt)
         # the paths of the checkpoints, remat, previews and three CLIs,
         # each counted from 0 just before it (their launches are read
         # into launches_per_path, the kernels' times on the paths above)
-        counts['checkpoint_cli'] = timed(phase_checkpoint_slice, device,
-                                         ckpt)
         counts['remat'] = timed(phase_remat, device, card)
         counts['previews'] = timed(phase_previews, device, ckpt)
         counts['generate'], gen_mels, gen_args = timed(
             phase_generate, device, card, vocoder_ckpt)
-        counts['inference_zero'] = timed(phase_inference_zero, device,
-                                         vocoder_ckpt)
-        counts['playground'] = timed(phase_playground, ckpt)
+
+        def beside_ddp():
+            # untimed paths, light on the host, while phase ddp's
+            # subprocesses run (previews' CPU synthesis is not)
+            timed(phase_nbest_cli, ckpt, spk_ckpt)
+            adaptive = timed(phase_adaptive, device, ckpt)
+            counts['checkpoint_cli'] = timed(phase_checkpoint_slice, device,
+                                             ckpt)
+            counts['inference_zero'] = timed(phase_inference_zero, device,
+                                             vocoder_ckpt)
+            counts['playground'] = timed(phase_playground, ckpt)
+            return adaptive
+
         # data parallelism over torch.distributed, each path counted from
         # 0 just before it (in this process, and in each rank's)
-        counts['ddp'], counts['tp'] = timed(phase_ddp, device, card)
+        (counts['ddp'], counts['tp'], counts['tp_likelihood'],
+         counts['dp_likelihood']) = timed(phase_ddp, device, card, ckpt,
+                                          beside_ddp)
         counts['ddp_generate'] = timed(phase_ddp_generate, card, gen_mels,
                                        gen_args)
         # objective evaluation and the trained-weights gate, each counted

@@ -14,15 +14,26 @@ reference's n_best/likelihood/likelihood.py:
   ``max_steps`` drift evaluations ran out before t1.
 
 The probe is an explicit input: ``epsilon=`` as it is, or drawn from
-``generator`` (Rademacher randint(0, 2) * 2 - 1, or Gaussian).
+``generator`` (Rademacher randint(0, 2) * 2 - 1, or Gaussian); a
+``models.layers.RowShard`` draws it at the global batch's shape and keeps
+this rank's rows.
+
+Data parallelism: where each process holds a block of the batch's rows,
+the integrators take the 'data' process group. Euler needs no collective;
+the Dormand-Prince error norm sums its squares and its element count over
+the group, so every rank takes the steps that one process takes on the
+global batch, as JAX's ``err_norm`` does over a sharded batch.
 """
 
+import functools
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from gradtts_tpu_torch.likelihood.sde import reverse_drift_fn
+from gradtts_tpu_torch.models.layers import draw
 
 
 class LikelihoodResult(NamedTuple):
@@ -56,26 +67,29 @@ def _drift_and_div(sde, score_fn):
 def sample_probe(shape, hutchinson_type: str = 'Rademacher', generator=None,
                  dtype=torch.float32, device=None):
     """The Hutchinson probe (``ode.py:82-88``): Rademacher +-1 or standard
-    normal, drawn from ``generator``."""
+    normal, drawn from ``generator`` (a ``torch.Generator``, or a
+    ``RowShard``: this rank's rows of the draw at the global shape)."""
     if hutchinson_type == 'Gaussian':
-        return torch.randn(shape, generator=generator, dtype=dtype,
-                           device=device)
+        return draw(torch.randn, shape, generator, dtype=dtype,
+                    device=device)
     if hutchinson_type == 'Rademacher':
-        return torch.randint(0, 2, shape, generator=generator,
-                             device=device).to(dtype) * 2.0 - 1.0
+        return draw(functools.partial(torch.randint, 0, 2), shape,
+                    generator, device=device).to(dtype) * 2.0 - 1.0
     raise NotImplementedError(hutchinson_type)
 
 
 def get_likelihood_fn(sde, score_fn: Callable, hutchinson_type='Rademacher',
                       rtol=1e-5, atol=1e-5, eps=1e-5, euler=0,
-                      max_steps=10_000):
+                      max_steps=10_000, group=None):
     """likelihood_fn(data, generator=None, epsilon=None) ->
     :class:`LikelihoodResult`. ``euler`` > 0 selects the fixed-step Euler
     integrator with that many steps, 0 the adaptive Dormand-Prince 5(4),
-    which stops after ``max_steps`` drift evaluations."""
+    which stops after ``max_steps`` drift evaluations. ``group``: the
+    'data' process group over whose ranks the batch's rows are split
+    (None for one process)."""
     f = _drift_and_div(sde, score_fn)
 
-    def likelihood_fn(data, generator: Optional[torch.Generator] = None,
+    def likelihood_fn(data, generator=None,
                       epsilon: Optional[torch.Tensor] = None):
         data = _masked(data, sde)
         if epsilon is None:
@@ -98,7 +112,7 @@ def get_likelihood_fn(sde, score_fn: Callable, hutchinson_type='Rademacher',
         else:
             z, delta_logp, nfe, converged = _dopri54(
                 f, data, epsilon, t0=eps, t1=sde.T, rtol=rtol, atol=atol,
-                max_steps=max_steps)
+                max_steps=max_steps, group=group)
         prior_logp = sde.prior_logp(z)
         return LikelihoodResult(-(prior_logp + delta_logp), prior_logp,
                                 delta_logp, z, nfe, converged)
@@ -123,13 +137,17 @@ _DP_B4 = [5179 / 57600, 0, 7571 / 16695, 393 / 640, -92097 / 339200,
           187 / 2100, 1 / 40]
 
 
-def _dopri54(f, x0, epsilon, t0, t1, rtol, atol, max_steps=10_000):
+def _dopri54(f, x0, epsilon, t0, t1, rtol, atol, max_steps=10_000,
+             group=None):
     """Integrates (x, delta_logp) from t0 to t1; the divergence rides along
     as an extra state coordinate. The step control is ``_dopri54`` :139-194
     of the JAX package: the error norm over the whole batch, the factor
     clip(0.9 err^-0.2, 0.2, 5), h = min(h, t1 - t), 7 evaluations counted
     per attempt, done when t >= t1 - 1e-12. Time and step size are f32
-    scalars on the host. Returns (x, delta_logp, nfe, converged)."""
+    scalars on the host. Under ``group`` (the 'data' ranks, each with its
+    rows of the batch) the squares' sum and the element count are summed
+    over the ranks, so every rank takes the global batch's steps. Returns
+    (x, delta_logp, nfe, converged)."""
     B = x0.shape[0]
     f32 = np.float32
     h = f32((t1 - t0) * 0.01)
@@ -160,7 +178,12 @@ def _dopri54(f, x0, epsilon, t0, t1, rtol, atol, max_steps=10_000):
         scale_d = atol + rtol * torch.maximum(dlp.abs(), d5.abs())
         s = (((x5 - x4) / scale_x) ** 2).sum() \
             + (((d5 - d4) / scale_d) ** 2).sum()
-        err = f32(torch.sqrt(s / n).item())
+        count = n
+        if group is not None:
+            sn = torch.stack([s, s.new_full((), n)])
+            dist.all_reduce(sn, group=group)
+            s, count = sn
+        err = f32(torch.sqrt(s / count).item())
         if err <= 1.0:
             t, x, dlp = f32(t + h), x5, d5
         h = f32(h * np.clip(f32(0.9) * (err + f32(1e-12)) ** f32(-0.2),

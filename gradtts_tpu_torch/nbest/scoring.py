@@ -41,12 +41,19 @@ from gradtts_tpu_torch.nbest.lists import NBestList
 def score_batch(model: GradTTS, x, x_lengths, y, y_lengths,
                 n_euler: int = 10, rtol=1e-3, atol=1e-3, generator=None,
                 epsilon=None, max_steps: int = 10_000,
-                spk=None) -> LikelihoodResult:
+                spk=None, mesh=None) -> LikelihoodResult:
     """Log-likelihood score of the real mels y [B, Ty, F] under the
     text-conditional score model, for token ids x [B, Tx] and speakers
     ``spk`` (ids [B] or vectors [B, D], where the model has speakers)
     (``score_batch`` :41). The probe is ``epsilon`` [B, Ty, F], or drawn
     from ``generator``.
+    On a ('data', 'model') ``mesh`` (``parallel.mesh.make_mesh``), as the
+    JAX package scores under its mesh: x, x_lengths, y, y_lengths, spk and
+    ``epsilon`` are this rank's rows (``parallel.mesh.shard_batch``), the
+    model may be split over 'model' (``parallel.mesh.shard_model``), and
+    ``generator`` is then a ``models.layers.RowShard``, so the probe is
+    this rank's rows of the global batch's; the adaptive integrator's
+    steps are the global batch's. Every rank of the mesh must call it.
     ``.score`` holds the [B] scores, -(prior_logp + delta_logp); callers of
     the adaptive integrator (``n_euler=0``) check ``.converged``. The
     forward-mode derivatives need no autograd graph, so none is built."""
@@ -55,8 +62,10 @@ def score_batch(model: GradTTS, x, x_lengths, y, y_lengths,
     dec = model.decoder
     sde = SpeechSDE(beta_min=dec.beta_min, beta_max=dec.beta_max,
                     N=int(dec.estimator.pe_scale), mu=mu_y, mask=y_mask)
-    likelihood_fn = get_likelihood_fn(sde, score_fn, rtol=rtol, atol=atol,
-                                      euler=n_euler, max_steps=max_steps)
+    likelihood_fn = get_likelihood_fn(
+        sde, score_fn, rtol=rtol, atol=atol, euler=n_euler,
+        max_steps=max_steps,
+        group=None if mesh is None else mesh.get_group('data'))
     return likelihood_fn(y, generator=generator, epsilon=epsilon)
 
 

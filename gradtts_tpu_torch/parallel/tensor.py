@@ -16,6 +16,14 @@ collectives. The port inserts them itself, over the 'model' group of a
   bias or a GroupNorm affine that the rank uses in part); its backward
   gathers the gradient.
 
+Each also has a forward-mode rule, for ``torch.func.jvp`` (the Hutchinson
+divergence of likelihood scoring on a split model): the tangent of a copy
+is its input's, of a gather the ranks' tangent blocks gathered (one more
+collective, after the forward's, in the same order on every rank), of a
+scatter this rank's block of it. The rules take the tangents from under
+the transform's wrapper (``ops._build.raw``), as the collectives need
+tensors with storage.
+
 A gather is an all_reduce sum of a zero-filled full-size buffer that holds
 the rank's block: exact in every dtype (x + 0 = x), and carried by NCCL
 and by gloo's CUDA path alike, whose CUDA collectives are broadcast and
@@ -26,6 +34,8 @@ from typing import NamedTuple
 
 import torch
 import torch.distributed as dist
+
+from gradtts_tpu_torch.ops import _build
 
 
 class ModelSplit(NamedTuple):
@@ -63,9 +73,14 @@ def gather(x: torch.Tensor, split: ModelSplit, dim: int) -> torch.Tensor:
 
 class _CopyToModel(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, split):
-        ctx.split = split
-        return x
+    def forward(x, split):
+        # a view, not ``x`` itself: torch.func's transforms take no Function
+        # that returns an input as it is (no copy is made)
+        return x.view_as(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.split = inputs[1]
 
     @staticmethod
     def backward(ctx, dy):
@@ -73,27 +88,47 @@ class _CopyToModel(torch.autograd.Function):
         dist.all_reduce(dx, group=ctx.split.group)
         return dx, None
 
+    @staticmethod
+    def jvp(ctx, dx, _):
+        # the forward returns a view, so forward mode wants a view of dx
+        dx = _build.raw(dx)
+        return dx.view_as(dx)
+
 
 class _GatherFromModel(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, split, dim):
-        ctx.split, ctx.dim = split, dim
+    def forward(x, split, dim):
         return gather(x, split, dim)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _, ctx.split, ctx.dim = inputs
 
     @staticmethod
     def backward(ctx, dy):
         return block(dy, ctx.split, ctx.dim), None, None
 
+    @staticmethod
+    def jvp(ctx, dx, *_):
+        return gather(_build.raw(dx), ctx.split, ctx.dim)
+
 
 class _ScatterToModel(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, split, dim):
-        ctx.split, ctx.dim = split, dim
+    def forward(x, split, dim):
         return block(x, split, dim).clone()
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _, ctx.split, ctx.dim = inputs
 
     @staticmethod
     def backward(ctx, dy):
         return gather(dy.contiguous(), ctx.split, ctx.dim), None, None
+
+    @staticmethod
+    def jvp(ctx, dx, *_):
+        return block(_build.raw(dx), ctx.split, ctx.dim).clone()
 
 
 def copy_to_model(x: torch.Tensor, split: ModelSplit) -> torch.Tensor:

@@ -3,11 +3,12 @@ gloo on the CPU (tests/torch_dist_worker.py, started as torchrun starts
 them): a W=2 train step against JAX's step on a 2-device data mesh, and
 against the port's one-process step on the global batch with dropout on;
 the ranks' parameters bit-equal after a step of every preset set-up and of
-remat; ``cli.train`` on two ranks with a resume; and ``cli.generate
---mesh-data 2`` against ``--mesh-data 1``. The batch puts the long rows on
-rank 0 and the short ones on rank 1, so that only the global batch's
-normalizers give the global losses (after tests/test_train_parallel.py and
-tests/test_distributed_2proc.py)."""
+remat; the adaptive likelihood integrator on the two ranks' rows against
+one process; ``cli.train`` on two ranks with a resume; and
+``cli.generate --mesh-data 2`` against ``--mesh-data 1``. The batch puts
+the long rows on rank 0 and the short ones on rank 1, so that only the
+global batch's normalizers give the global losses (after
+tests/test_train_parallel.py and tests/test_distributed_2proc.py)."""
 
 import json
 import os
@@ -24,7 +25,7 @@ import jax
 import jax.numpy as jnp
 
 from _torch_port import (CMUDICT, TINY, TINY_SET, jax_model_and_params,
-                         ragged_batch, torch_model, write_corpus)
+                         ragged_batch, text_batch, torch_model, write_corpus)
 from test_torch_train import OUT_SIZE, _jax_draws
 from gradtts_tpu.models.tts import compute_loss as jax_compute_loss
 from gradtts_tpu.parallel.mesh import make_mesh as jax_make_mesh
@@ -34,6 +35,7 @@ from gradtts_tpu.train.state import _subtree_clip
 from gradtts_tpu.utils.io import save_params_npz
 from gradtts_tpu_torch.cli.generate import main as generate_main
 from gradtts_tpu_torch.models.tts import compute_loss
+from gradtts_tpu_torch.nbest.scoring import score_batch
 from gradtts_tpu_torch.train.loop import batch_to
 from gradtts_tpu_torch.train.state import make_optimizer, train_step
 from gradtts_tpu_torch.utils.convert import flax_params_to_state_dict
@@ -61,6 +63,11 @@ SETUPS = [('ljspeech', 'ljspeech', {}, False),
           ('tedlium', 'tedlium', {}, False),
           ('libri-tts', 'libri-tts', {'encoder_speaker': True}, False),
           ('remat', 'ljspeech', {}, True)]
+# the adaptive integrator's tolerances on the two ranks (42 evaluations
+# of the tiny model), and its scores' bound: the ranks' U-Net rows part
+# from one process's in the last bits, and the steps carry that on
+# (test_torch_likelihood.py's bound for ~60 evaluations)
+ADAPTIVE_TOL, ADAPTIVE_RTOL = 1e-1, 1e-3
 
 
 def _free_port():
@@ -109,13 +116,48 @@ def stepped(tmp_path_factory):
     key = jax.random.PRNGKey(63)
     offset, t, z = _jax_draws(key, batch['y_lengths'])
     np.savez(tmp / 'draws.npz', offset=offset, t=t, z=z)
+    np.savez(tmp / 'score_batch.npz', **score_inputs())
     launch('steps', {'hp': TINY, 'out_size': OUT_SIZE, 'seed': SEED,
                      'out': str(tmp), 'state_dict': str(tmp / 'sd.pt'),
                      'batch': str(tmp / 'batch.npz'),
                      'draws': str(tmp / 'draws.npz'),
                      'setups': [[n, p, {**TINY_CFG, **o}, r]
-                                for n, p, o, r in SETUPS]}, tmp, 300)
+                                for n, p, o, r in SETUPS],
+                     'score': {'batch': str(tmp / 'score_batch.npz'),
+                               'runs': {'adaptive': {
+                                   'n_euler': 0, 'rtol': ADAPTIVE_TOL,
+                                   'atol': ADAPTIVE_TOL, 'seed': SEED}}}},
+           tmp, 300)
     return tmp, jmodel, params, batch, key
+
+
+def score_inputs():
+    """test_torch_likelihood.py's scoring batch: 2 texts, 32 frames of
+    log-mel-like values, the second row 24 long."""
+    x, x_lengths = text_batch(6, lengths=(16, 11))
+    y = np.random.default_rng(7).standard_normal((2, 32, 80)).astype(
+        np.float32) - 2.0
+    y[1, 24:] = 0.0
+    return {'x': x, 'x_lengths': x_lengths, 'y': y,
+            'y_lengths': np.array([32, 24], np.int32)}
+
+
+def assert_score_rows(got, want, rows, rtol, with_z=True):
+    """A rank's ``score_batch`` result (a dict of its fields) against the
+    rows ``rows`` of one process's on the global batch: the same ``nfe``
+    and ``converged``; score, prior_logp and delta_logp within ``rtol``,
+    and ``with_z`` z within ``rtol`` of the global batch's largest |z|."""
+    assert (got['nfe'], got['converged']) == (int(want.nfe),
+                                              bool(want.converged))
+    for name in ('score', 'prior_logp', 'delta_logp'):
+        np.testing.assert_allclose(np.asarray(got[name]),
+                                   np.asarray(getattr(want, name))[rows],
+                                   rtol=rtol, err_msg=name)
+    if not with_z:
+        return
+    z = np.asarray(want.z)
+    np.testing.assert_allclose(np.asarray(got['z']), z[rows], rtol=0,
+                               atol=rtol * np.abs(z).max(), err_msg='z')
 
 
 def _ranks(tmp, name):
@@ -241,6 +283,31 @@ def test_ranks_hold_bit_equal_parameters(stepped, setup):
     assert a['params'].keys() == b['params'].keys()
     for name, p in a['params'].items():
         assert torch.equal(p, b['params'][name]), name
+
+
+def test_adaptive_score_on_two_data_ranks_takes_one_process_steps(
+        stepped):
+    """The adaptive Dormand-Prince ``score_batch`` on two data ranks, one
+    row each (the long one and the short one), the probe drawn at the
+    global shape from one seeded generator (``RowShard``): both ranks take
+    the one-process attempts (``nfe``) and ``converged``, their error norm
+    summed over the 'data' group, and score their rows as one process
+    scores the batch within ADAPTIVE_RTOL. As in test_torch_likelihood.py's
+    adaptive test, z is not held: the error estimate x5 - x4 cancels, so
+    the rows' last-bit differences part the two runs' step sizes by ~1e-4
+    relative, which moves z by up to ~5e-3 of its largest value."""
+    tmp, _, params, _, _ = stepped
+    b = batch_to(score_inputs(), 'cpu')
+    want = score_batch(torch_model(params), b['x'], b['x_lengths'], b['y'],
+                       b['y_lengths'], n_euler=0, rtol=ADAPTIVE_TOL,
+                       atol=ADAPTIVE_TOL,
+                       generator=torch.Generator().manual_seed(SEED))
+    assert want.converged
+    for r in range(2):
+        got = torch.load(tmp / f'score_{r}.pt', weights_only=True)
+        assert got['coord'] == [r, 0]
+        assert_score_rows(got['adaptive'], want, slice(r, r + 1),
+                          ADAPTIVE_RTOL, with_z=False)
 
 
 def test_train_cli_on_two_ranks_resumes(tmp_path):

@@ -3,10 +3,12 @@ the split rule against the JAX package's ``param_pspec`` leaf for leaf;
 the three collectives of ``parallel.tensor`` on two gloo ranks; the plain
 GroupNorm+Mish of a channel block; a train step on 2 ranks (data 1 x
 model 2) and on 4 (data 2 x model 2) against JAX's step on the same mesh
-and against the port's one-process step; and ``cli.train --mesh-model 2``
-with checkpoints that move between two ranks and one process. The ranks
-run tests/torch_dist_worker.py, as in tests/test_torch_distributed.py,
-whose bounds these tests keep."""
+and against the port's one-process step; likelihood scoring on the same
+ranks (forward mode through the split layers) against the port's one
+process and JAX's ``score_batch`` on its mesh; and ``cli.train
+--mesh-model 2`` with checkpoints that move between two ranks and one
+process. The ranks run tests/torch_dist_worker.py, as in
+tests/test_torch_distributed.py, whose bounds these tests keep."""
 
 import os
 import shutil
@@ -22,11 +24,14 @@ import jax.numpy as jnp
 from _torch_port import (CMUDICT, TINY, TINY_SET, jax_model_and_params,
                          ragged_batch, torch_model, write_corpus)
 from test_torch_distributed import (ADAM_FLAT, GRAD_FLOOR, GRAD_TOL, SEED,
-                                    TOL, assert_step_close, launch)
+                                    TOL, assert_score_rows,
+                                    assert_step_close, launch)
+from test_torch_likelihood import _jax_probe
 from test_torch_train import OUT_SIZE, _jax_draws
 from gradtts_tpu import get_config as jax_get_config
 from gradtts_tpu.models import GradTTS as JaxGradTTS
 from gradtts_tpu.models.tts import compute_loss as jax_compute_loss
+from gradtts_tpu.nbest.scoring import score_batch as jax_score_batch
 from gradtts_tpu.parallel.mesh import make_mesh as jax_make_mesh
 from gradtts_tpu.parallel.mesh import param_pspec, param_shardings
 from gradtts_tpu.parallel.mesh import shard_batch as jax_shard_batch
@@ -34,6 +39,7 @@ from gradtts_tpu.train.state import _subtree_clip
 from gradtts_tpu_torch.cli.train import main as train_main
 from gradtts_tpu_torch.config import get_config
 from gradtts_tpu_torch.models.tts import GradTTS
+from gradtts_tpu_torch.nbest.scoring import score_batch
 from gradtts_tpu_torch.ops.groupnorm_mish import groupnorm_mish_plain
 from gradtts_tpu_torch.parallel.mesh import split_dim
 from gradtts_tpu_torch.train.loop import batch_to
@@ -46,6 +52,8 @@ from gradtts_tpu_torch.utils.convert import (flax_params_to_state_dict,
 PRESETS = [('ljspeech', {}), ('tedlium-spk', {}), ('tedlium', {}),
            ('libri-tts', {'encoder_speaker': True})]
 MODEL = 2                   # the 'model' axis of the step tests
+SCORE_STEPS = 2             # Euler steps of the scoring tests, as
+                            # __graft_entry__.py:165 scores on its mesh
 
 
 # ---- (a) the split rule -----------------------------------------------------
@@ -157,7 +165,8 @@ def test_groupnorm_mish_of_a_block_is_the_block_of_the_whole(channels, size):
 
 @pytest.fixture(scope='module')
 def start(tmp_path_factory):
-    """The tiny model's weights, the global batch of 4 and JAX's draws."""
+    """The tiny model's weights, the global batch of 4, JAX's draws and
+    the Hutchinson probe that JAX's ``score_batch`` draws from ``key``."""
     tmp = tmp_path_factory.mktemp('tp')
     jmodel, params = jax_model_and_params(seed=72)
     torch.save(flax_params_to_state_dict(params), tmp / 'sd.pt')
@@ -166,13 +175,16 @@ def start(tmp_path_factory):
     key = jax.random.PRNGKey(74)
     offset, t, z = _jax_draws(key, batch['y_lengths'])
     np.savez(tmp / 'draws.npz', offset=offset, t=t, z=z)
+    np.save(tmp / 'probe.npy', _jax_probe(key, batch['y'].shape))
     return tmp, jmodel, params, batch, key
 
 
 @pytest.fixture(scope='module')
 def stepped(start, tmp_path_factory):
     """The worker's ``tp_steps`` on a (data, 2) mesh for data 1 and 2 (the
-    Functions in the first): {data: (data, tmp dir, the start)}."""
+    Functions in the first), each scoring the batch with JAX's probe and
+    with one drawn from a generator seeded SEED: {data: (data, tmp dir,
+    the start)}."""
     src, out = start[0], {}
     for data in (1, 2):
         tmp = tmp_path_factory.mktemp(f'tp_data{data}')
@@ -181,7 +193,16 @@ def stepped(start, tmp_path_factory):
                             'state_dict': str(src / 'sd.pt'),
                             'batch': str(src / 'batch.npz'),
                             'draws': str(src / 'draws.npz'), 'data': data,
-                            'model': MODEL, 'functions': data == 1},
+                            'model': MODEL, 'functions': data == 1,
+                            'score': {'batch': str(src / 'batch.npz'),
+                                      'runs': {
+                                          'probe': {
+                                              'n_euler': SCORE_STEPS,
+                                              'probe': str(src
+                                                           / 'probe.npy')},
+                                          'generator': {
+                                              'n_euler': SCORE_STEPS,
+                                              'seed': SEED}}}},
                tmp, 300, ranks=data * MODEL)
         out[data] = (data, tmp, start)
     return out
@@ -224,6 +245,99 @@ def test_functions_match_one_process(stepped):
         for name, (value, grad) in want.items():
             assert torch.equal(got[name]['value'], value), name
             assert torch.equal(got[name]['grad'], grad), name
+
+
+def test_functions_forward_mode_match_one_process(stepped):
+    """``torch.func.jvp`` through the three Functions on two ranks: the
+    tangent of ``copy_to_model`` is its input's, of ``gather_from_model``
+    the ranks' tangent blocks concatenated, of ``scatter_to_model`` this
+    rank's block of its input's; a gather whose input carries no tangent
+    runs inside a jvp. Exact, as the unsplit ops' tangents."""
+    _, tmp, _ = stepped[1]
+    rng = np.random.default_rng(SEED)
+    x = torch.from_numpy(rng.standard_normal((2, 8, 3, 5), np.float32))
+    rng.standard_normal((MODEL, 2, 8, 3, 5), np.float32)    # the upstreams
+    dx = torch.from_numpy(rng.standard_normal((2, 8, 3, 5), np.float32))
+    for j in range(MODEL):
+        got = torch.load(tmp / f'functions_{j}.pt', weights_only=True)
+        c = slice(4 * j, 4 * j + 4)
+        want = {'copy': dx, 'gather': dx, 'scatter': dx[:, c]}
+        for name, tangent in want.items():
+            assert torch.equal(got[name]['tangent'], tangent), name
+        assert torch.equal(got['gather_no_tangent']['value'], x * x)
+        assert torch.equal(got['gather_no_tangent']['tangent'], dx * x)
+
+
+def _score_ranks(data, tmp):
+    """Each rank's saved scoring runs, with the rows of the global batch
+    of 4 that its 'data' coordinate holds."""
+    ranks = [torch.load(tmp / f'score_{r}.pt', weights_only=True)
+             for r in range(data * MODEL)]
+    n = 4 // data
+    return [(r, slice(r['coord'][0] * n, (r['coord'][0] + 1) * n))
+            for r in ranks]
+
+
+@pytest.fixture(scope='module')
+def one_score(start):
+    """The port's one-process ``score_batch`` on the global batch, whole
+    model: with JAX's probe, and with one drawn from a generator seeded
+    SEED."""
+    tmp, _, params, batch, _ = start
+    model = torch_model(params)
+    b = batch_to(batch, 'cpu')
+    args = [b[k] for k in ('x', 'x_lengths', 'y', 'y_lengths')]
+    return {'probe': score_batch(
+                model, *args, n_euler=SCORE_STEPS,
+                epsilon=torch.from_numpy(np.load(tmp / 'probe.npy'))),
+            'generator': score_batch(
+                model, *args, n_euler=SCORE_STEPS,
+                generator=torch.Generator().manual_seed(SEED))}
+
+
+@pytest.mark.parametrize('data', [1, 2])
+def test_tp_score_equals_one_process(stepped, one_score, data):
+    """Euler ``score_batch`` with the model split over 'model' (forward
+    mode through the split layers) and the rows over 'data': every rank's
+    scores are its rows of the port's one-process scores within 1e-5
+    relative (f32), with the given probe and with the probe drawn at the
+    global shape from one generator; the ranks that share rows agree bit
+    for bit."""
+    _, tmp, _ = stepped[data]
+    ranks = _score_ranks(data, tmp)
+    for run, want in one_score.items():
+        for got, rows in ranks:
+            assert_score_rows(got[run], want, rows, TOL)
+            same = [g for g, _ in ranks if g['coord'][0] == got['coord'][0]]
+            assert all(torch.equal(g[run]['score'], got[run]['score'])
+                       and torch.equal(g[run]['z'], got[run]['z'])
+                       for g in same), run
+
+
+def test_tp_score_matches_jax_mesh(stepped):
+    """The four ranks (data 2 x model 2) against JAX's ``score_batch`` on
+    make_mesh(2, 2), its parameters placed by ``param_shardings`` and the
+    batch by ``shard_batch``, jitted as __graft_entry__.py:156-172 calls
+    it, the probe drawn from the same key: every rank's rows within
+    test_torch_likelihood.py's 1e-5."""
+    _, tmp, (_, jmodel, params, batch, key) = stepped[2]
+    mesh = jax_make_mesh(data=2, model=MODEL,
+                         devices=jax.devices()[:2 * MODEL])
+
+    def like_fn(params, key, x, x_lengths, y, y_lengths):
+        return jax_score_batch(jmodel, params, key, x, x_lengths, y,
+                               y_lengths, n_euler=SCORE_STEPS)
+
+    with mesh:
+        placed = jax.device_put(params, param_shardings(mesh, params))
+        assert any('model' in tuple(leaf.sharding.spec)
+                   for leaf in jax.tree_util.tree_leaves(placed))
+        sharded = jax_shard_batch(mesh, batch)
+        want = jax.jit(like_fn)(placed, key, sharded['x'],
+                                sharded['x_lengths'], sharded['y'],
+                                sharded['y_lengths'])
+    for got, rows in _score_ranks(2, tmp):
+        assert_score_rows(got['probe'], want, rows, TOL)
 
 
 def _jax_mesh_step(jmodel, params, batch, key, data):

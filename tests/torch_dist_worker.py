@@ -11,7 +11,9 @@ the worker of tests/test_torch_distributed.py. It imports no JAX:
   the draws from a seeded generator; each preset (seeded weights) and one
   with remat. Writes each rank's metrics, parameters, clipped gradients
   and the names of the parameters that got no grad to
-  ``{out}/{name}_{rank}.pt``.
+  ``{out}/{name}_{rank}.pt``; with ``score`` in SPEC then ``score_batch``
+  of the given weights on the mesh, each of its runs on this rank's rows
+  of its batch, to ``{out}/score_{rank}.pt``.
 - ``train_cli``: ``cli.train.main`` with SPEC's argv, then again with one
   more step (a resume); writes each run's step and metrics and the final
   parameters to ``{out}/train_cli_{rank}.pt``.
@@ -20,8 +22,9 @@ the worker of tests/test_torch_distributed.py. It imports no JAX:
   shape: the ``steps`` of the given weights (dropout off with the given
   draws, then on) with the model split over 'model'
   (``shard_model``) and DDP over 'data', each rank's parameters and
-  gradients its blocks; with ``functions`` in SPEC first the values and
-  gradients of ``copy_to_model``, ``gather_from_model`` and
+  gradients its blocks, and the ``score`` runs with the model split; with
+  ``functions`` in SPEC first the values, gradients and forward-mode
+  tangents of ``copy_to_model``, ``gather_from_model`` and
   ``scatter_to_model`` on seeded inputs, to ``{out}/functions_{rank}.pt``.
 - ``cli_runs``: ``cli.train.main`` with each argv of SPEC's ``runs``.
 """
@@ -35,7 +38,9 @@ import torch
 from torch.nn.parallel import DistributedDataParallel
 
 from gradtts_tpu_torch.config import get_config
+from gradtts_tpu_torch.models.layers import RowShard
 from gradtts_tpu_torch.models.tts import GradTTS
+from gradtts_tpu_torch.nbest.scoring import score_batch
 from gradtts_tpu_torch.parallel.mesh import (AXES, batch_sharding,
                                              initialize_distributed,
                                              make_mesh, shard_batch,
@@ -98,6 +103,36 @@ def steps(spec, mesh=None):
         _step(name, model, spec, mesh,
               batch_to(shard_batch(mesh, setup), 'cpu'),
               torch.Generator().manual_seed(spec['seed']), remat=remat)
+    if 'score' in spec:
+        score(spec, mesh)
+
+
+def score(spec, mesh):
+    """``score_batch`` of SPEC's weights, split over the mesh's 'model'
+    axis, on this rank's rows of ``score['batch']``: each run of
+    ``score['runs']`` with its keywords, its probe the rows of the one in
+    the file ``probe`` or drawn from a generator seeded ``seed``
+    (``RowShard``)."""
+    sc = spec['score']
+    rows = batch_sharding(mesh)
+    batch = batch_to(shard_batch(mesh, dict(np.load(sc['batch']))), 'cpu')
+    model = GradTTS(n_vocab=get_config('ljspeech').n_vocab, **spec['hp'])
+    model.load_state_dict(torch.load(spec['state_dict'], weights_only=True),
+                          strict=True)
+    shard_model(model.eval(), mesh)
+    out = {'coord': [mesh.get_local_rank(a) for a in AXES]}
+    for name, kw in sc['runs'].items():
+        kw = dict(kw)
+        if 'probe' in kw:
+            kw['epsilon'] = torch.from_numpy(rows(np.load(kw.pop('probe'))))
+        else:
+            kw['generator'] = RowShard(
+                torch.Generator().manual_seed(kw.pop('seed')),
+                mesh.get_local_rank('data'), mesh.size(0))
+        res = score_batch(model, batch['x'], batch['x_lengths'], batch['y'],
+                          batch['y_lengths'], mesh=mesh, **kw)
+        out[name] = res._asdict()
+    torch.save(out, os.path.join(spec['out'], f'score_{world()[0]}.pt'))
 
 
 def train_cli(spec):
@@ -118,7 +153,10 @@ def generate(spec):
 def functions(spec, mesh):
     """The three Functions on the 'model' axis, on inputs drawn from one
     seed (the same on every rank): each output and the gradient of its
-    input under a rank-dependent upstream gradient."""
+    input under a rank-dependent upstream gradient; then each output's
+    tangent by ``torch.func.jvp`` along a seeded tangent of the whole
+    input (this rank's block of it where the input is a block), and a
+    gather whose input carries none inside a jvp."""
     split = ModelSplit(mesh.get_group('model'), mesh.get_local_rank('model'),
                        mesh.size(1), 0)
     j = split.index
@@ -126,18 +164,29 @@ def functions(spec, mesh):
     x = torch.from_numpy(rng.standard_normal((2, 8, 3, 5), np.float32))
     ups = torch.from_numpy(rng.standard_normal((split.size, 2, 8, 3, 5),
                                                np.float32))
+    dx = torch.from_numpy(rng.standard_normal((2, 8, 3, 5), np.float32))
+
+    def own(t):
+        return t[:, 4 * j:4 * j + 4].contiguous(
+            memory_format=torch.channels_last)
+
     out = {}
-    for name, fn, given, upstream in (
-            ('copy', lambda t: copy_to_model(t, split), x, ups[j]),
-            ('gather', lambda t: gather_from_model(t, split, 1),
-             x[:, 4 * j:4 * j + 4].contiguous(
-                 memory_format=torch.channels_last), ups[0]),
+    for name, fn, given, upstream, tangent in (
+            ('copy', lambda t: copy_to_model(t, split), x, ups[j], dx),
+            ('gather', lambda t: gather_from_model(t, split, 1), own(x),
+             ups[0], own(dx)),
             ('scatter', lambda t: scatter_to_model(t, split, 1), x,
-             ups[j][:, 4 * j:4 * j + 4])):
+             ups[j][:, 4 * j:4 * j + 4], dx)):
         t = given.clone().requires_grad_()
         y = fn(t)
         y.backward(upstream)
-        out[name] = {'value': y.detach(), 'grad': t.grad}
+        with torch.no_grad():
+            _, dy = torch.func.jvp(fn, (given,), (tangent,))
+        out[name] = {'value': y.detach(), 'grad': t.grad, 'tangent': dy}
+    with torch.no_grad():
+        out['gather_no_tangent'] = dict(zip(('value', 'tangent'),
+                                            torch.func.jvp(
+            lambda t: t * gather_from_model(own(x), split, 1), (x,), (dx,))))
     torch.save(out, os.path.join(spec['out'], f'functions_{world()[0]}.pt'))
 
 
