@@ -1,0 +1,6 @@
+"""Utterances trained on over the window's seconds."""
+from benchmark.readers import rate
+
+
+def read(run):
+    return rate(run, 'utterances')
