@@ -1,0 +1,7 @@
+"""Device ms a call of the kernels launched in the program's
+``gradtts.encoder`` span (text encoder and duration predictor)."""
+from benchmark.spans import ENCODER, per_call_ms
+
+
+def read(run):
+    return per_call_ms(run, ENCODER, 'train')

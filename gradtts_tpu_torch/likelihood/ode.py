@@ -34,6 +34,7 @@ import torch.distributed as dist
 
 from gradtts_tpu_torch.likelihood.sde import reverse_drift_fn
 from gradtts_tpu_torch.models.layers import draw
+from gradtts_tpu_torch.utils.profiling import span
 
 
 class LikelihoodResult(NamedTuple):
@@ -97,22 +98,23 @@ def get_likelihood_fn(sde, score_fn: Callable, hutchinson_type='Rademacher',
                                    data.dtype, data.device)
         epsilon = epsilon.to(data)
         B = data.shape[0]
-        if euler > 0:
-            h = 1.0 / euler
-            z = data
-            delta_logp = torch.zeros((B,), dtype=torch.float32,
-                                     device=data.device)
-            for i in range(euler):
-                # f32 arithmetic as the JAX scan's (i + 0.5) * h
-                t = (torch.full((B,), float(i), dtype=data.dtype,
-                                device=data.device) + 0.5) * h
-                d, div = f(z, t, epsilon)
-                z, delta_logp = z + d * h, delta_logp + div * h
-            nfe, converged = euler, True
-        else:
-            z, delta_logp, nfe, converged = _dopri54(
-                f, data, epsilon, t0=eps, t1=sde.T, rtol=rtol, atol=atol,
-                max_steps=max_steps, group=group)
+        with span('gradtts.likelihood'):
+            if euler > 0:
+                h = 1.0 / euler
+                z = data
+                delta_logp = torch.zeros((B,), dtype=torch.float32,
+                                         device=data.device)
+                for i in range(euler):
+                    # f32 arithmetic as the JAX scan's (i + 0.5) * h
+                    t = (torch.full((B,), float(i), dtype=data.dtype,
+                                    device=data.device) + 0.5) * h
+                    d, div = f(z, t, epsilon)
+                    z, delta_logp = z + d * h, delta_logp + div * h
+                nfe, converged = euler, True
+            else:
+                z, delta_logp, nfe, converged = _dopri54(
+                    f, data, epsilon, t0=eps, t1=sde.T, rtol=rtol,
+                    atol=atol, max_steps=max_steps, group=group)
         prior_logp = sde.prior_logp(z)
         return LikelihoodResult(-(prior_logp + delta_logp), prior_logp,
                                 delta_logp, z, nfe, converged)

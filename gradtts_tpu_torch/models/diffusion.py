@@ -40,6 +40,7 @@ from gradtts_tpu_torch.ops.groupnorm_mish import fits, groupnorm_mish
 from gradtts_tpu_torch.ops.linear_attention import linear_attention_rezero
 from gradtts_tpu_torch.parallel.tensor import (gather_from_model,
                                                scatter_to_model)
+from gradtts_tpu_torch.utils.profiling import span
 
 CL = torch.channels_last
 
@@ -289,43 +290,62 @@ class GradLogPEstimator2d(nn.Module):
         self.final_conv = Conv2d(dim, 1, 1)
 
     def forward(self, x, mask, mu, t, spk=None):
-        dtype = self.compute_dtype
-        t_emb = _mlp(self.mlp, self.time_pos_emb(t, scale=self.pe_scale))
-        chans = [mu.transpose(1, 2), x.transpose(1, 2)]
-        if self.n_spks > 1:
-            if spk is None:
-                raise ValueError(f'a {self.n_spks}-speaker estimator needs '
-                                 'the speaker embedding spk')
-            s = _mlp(self.spk_mlp, spk.float())                 # [B, F]
-            chans.append(s[:, :, None].expand(-1, -1, x.shape[1]))
-        h = torch.stack(chans, dim=1)
-        h = h.to(dtype).contiguous(memory_format=CL)         # [B, 2|3, F, T]
-        m = mask[:, None, None, :].to(dtype)                    # [B, 1, 1, T]
+        """One evaluation, in the span ``gradtts.unet``; its 25 sub-spans
+        (``utils.profiling.SPANS``) are the same at every width."""
+        with span('gradtts.unet'):
+            dtype = self.compute_dtype
+            with span('gradtts.unet.embed'):
+                t_emb = _mlp(self.mlp,
+                             self.time_pos_emb(t, scale=self.pe_scale))
+                chans = [mu.transpose(1, 2), x.transpose(1, 2)]
+                if self.n_spks > 1:
+                    if spk is None:
+                        raise ValueError(f'a {self.n_spks}-speaker estimator '
+                                         'needs the speaker embedding spk')
+                    s = _mlp(self.spk_mlp, spk.float())         # [B, F]
+                    chans.append(s[:, :, None].expand(-1, -1, x.shape[1]))
+                h = torch.stack(chans, dim=1)
+                h = h.to(dtype).contiguous(memory_format=CL)  # [B, 2|3, F, T]
+                m = mask[:, None, None, :].to(dtype)             # [B, 1, 1, T]
 
-        hiddens, masks = [], [m]
-        for res1, res2, attn, down in self.downs:
-            mask_down = masks[-1]
-            h = res1(h, mask_down, t_emb)
-            h = res2(h, mask_down, t_emb)
-            h = attn(h)
-            hiddens.append(h)
-            h = down(h * mask_down)
-            masks.append(mask_down[:, :, :, ::2].contiguous())
-        masks = masks[:-1]
-        mask_mid = masks[-1]
-        h = self.mid_block1(h, mask_mid, t_emb)
-        h = self.mid_attn(h)
-        h = self.mid_block2(h, mask_mid, t_emb)
-        for res1, res2, attn, up in self.ups:
-            mask_up = masks.pop()
-            h = torch.cat([h, hiddens.pop()], dim=1)
-            h = res1(h, mask_up, t_emb)
-            h = res2(h, mask_up, t_emb)
-            h = attn(h)
-            h = up(h * mask_up)
-        h = self.final_block(h, m)
-        out = (self.final_conv(h * m) * m).float()              # [B, 1, F, T]
-        return out[:, 0].transpose(1, 2)
+            hiddens, masks = [], [m]
+            for res1, res2, attn, down in self.downs:
+                mask_down = masks[-1]
+                with span('gradtts.unet.resnet'):
+                    h = res1(h, mask_down, t_emb)
+                with span('gradtts.unet.resnet'):
+                    h = res2(h, mask_down, t_emb)
+                with span('gradtts.unet.attention'):
+                    h = attn(h)
+                hiddens.append(h)
+                with span('gradtts.unet.resample'):
+                    h = down(h * mask_down)
+                    masks.append(mask_down[:, :, :, ::2].contiguous())
+            masks = masks[:-1]
+            mask_mid = masks[-1]
+            with span('gradtts.unet.resnet'):
+                h = self.mid_block1(h, mask_mid, t_emb)
+            with span('gradtts.unet.attention'):
+                h = self.mid_attn(h)
+            with span('gradtts.unet.resnet'):
+                h = self.mid_block2(h, mask_mid, t_emb)
+            for res1, res2, attn, up in self.ups:
+                mask_up = masks.pop()
+                # the skip connection's cat is the first block's input and
+                # sits in its span: a level keeps its four sub-spans
+                with span('gradtts.unet.resnet'):
+                    h = torch.cat([h, hiddens.pop()], dim=1)
+                    h = res1(h, mask_up, t_emb)
+                with span('gradtts.unet.resnet'):
+                    h = res2(h, mask_up, t_emb)
+                with span('gradtts.unet.attention'):
+                    h = attn(h)
+                with span('gradtts.unet.resample'):
+                    h = up(h * mask_up)
+            with span('gradtts.unet.out'):
+                h = self.final_block(h, m)
+                out = (self.final_conv(h * m) * m).float()      # [B, 1, F, T]
+                return out[:, 0].transpose(1, 2)
 
 
 def _mlp(seq, x):
@@ -358,22 +378,24 @@ def reverse_diffusion(estimator, z, mask, mu, n_timesteps: int, beta_min,
     are ``noise`` [n_timesteps, B, T, F], or drawn step by step from
     ``generator`` when None."""
     h = 1.0 / n_timesteps
-    xt = z * mask
-    for i in range(n_timesteps):
-        step = torch.full((z.shape[0],), float(i), dtype=z.dtype,
-                          device=z.device)
-        t = 1.0 - (step + 0.5) * h
-        noise_t = get_noise(t[:, None, None], beta_min, beta_max)
-        score = estimator(xt, mask[..., 0], mu, t, spk)
-        if stoc:
-            draw = noise[i].to(z) if noise is not None else torch.randn(
-                z.shape, generator=generator, dtype=z.dtype, device=z.device)
-            dxt = (0.5 * (mu - xt) - score) * noise_t * h \
-                + draw * torch.sqrt(noise_t * h)
-        else:
-            dxt = 0.5 * (mu - xt - score) * noise_t * h
-        xt = (xt - dxt) * mask
-    return xt
+    with span('gradtts.decoder'):
+        xt = z * mask
+        for i in range(n_timesteps):
+            step = torch.full((z.shape[0],), float(i), dtype=z.dtype,
+                              device=z.device)
+            t = 1.0 - (step + 0.5) * h
+            noise_t = get_noise(t[:, None, None], beta_min, beta_max)
+            score = estimator(xt, mask[..., 0], mu, t, spk)
+            if stoc:
+                draw = noise[i].to(z) if noise is not None else torch.randn(
+                    z.shape, generator=generator, dtype=z.dtype,
+                    device=z.device)
+                dxt = (0.5 * (mu - xt) - score) * noise_t * h \
+                    + draw * torch.sqrt(noise_t * h)
+            else:
+                dxt = 0.5 * (mu - xt - score) * noise_t * h
+            xt = (xt - dxt) * mask
+        return xt
 
 
 def _linspace(start, stop, num: int):
@@ -426,24 +448,25 @@ def reverse_diffusion_dpm(estimator, z, mask, mu, n_timesteps: int, beta_min,
     y' = (alpha_r / alpha_t) y - sigma_r expm1(h) E, E = eps on the first
     step and (1 + 1/2r) eps - (1/2r) eps_prev after it, r = h_prev / h.
     One estimator call a step, as Euler. z, mu [B, T, F]; mask [B, T, 1]."""
-    ts, alphas, sigmas, hs = dpm_grid(n_timesteps, beta_min, beta_max, t_min,
-                                      z.dtype, z.device)
-    xt = z * mask
-    e_prev = h_prev = None
-    for i in range(n_timesteps):
-        t = ts[i].expand(z.shape[0])
-        eps = -sigmas[i] * estimator(xt, mask[..., 0], mu, t, spk)
-        h = hs[i]
-        if i == 0:
-            e_ext = eps
-        else:
-            r = h_prev / h
-            e_ext = (1.0 + 0.5 / r) * eps - (0.5 / r) * e_prev
-        y = (alphas[i + 1] / alphas[i]) * (xt - mu) \
-            - sigmas[i + 1] * torch.expm1(h) * e_ext
-        xt = (mu + y) * mask
-        e_prev, h_prev = eps, h
-    return xt
+    with span('gradtts.decoder'):
+        ts, alphas, sigmas, hs = dpm_grid(n_timesteps, beta_min, beta_max,
+                                          t_min, z.dtype, z.device)
+        xt = z * mask
+        e_prev = h_prev = None
+        for i in range(n_timesteps):
+            t = ts[i].expand(z.shape[0])
+            eps = -sigmas[i] * estimator(xt, mask[..., 0], mu, t, spk)
+            h = hs[i]
+            if i == 0:
+                e_ext = eps
+            else:
+                r = h_prev / h
+                e_ext = (1.0 + 0.5 / r) * eps - (0.5 / r) * e_prev
+            y = (alphas[i + 1] / alphas[i]) * (xt - mu) \
+                - sigmas[i + 1] * torch.expm1(h) * e_ext
+            xt = (mu + y) * mask
+            e_prev, h_prev = eps, h
+        return xt
 
 
 def forward_diffusion(x0, mask, mu, t, z, beta_min, beta_max):

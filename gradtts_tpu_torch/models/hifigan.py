@@ -34,6 +34,8 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from gradtts_tpu_torch.utils.profiling import span
+
 LRELU_SLOPE = 0.1
 
 
@@ -152,20 +154,23 @@ class Generator(nn.Module):
         self.conv_post = nn.Conv1d(c0 // 2 ** len(self.ups), 1, 7)
 
     def forward(self, mel):
-        n_kernels = len(self.cfg.resblock_kernel_sizes)
-        x = _conv(mel.transpose(1, 2).to(self.compute_dtype), self.conv_pre)
-        for i, up in enumerate(self.ups):
-            x = F.leaky_relu(x, LRELU_SLOPE)
-            u = up.stride[0]
-            y = F.conv_transpose1d(x, up.weight.to(x.dtype), None, u,
-                                   (up.kernel_size[0] - u) // 2)
-            x = (_wide(y) + up.bias[:, None]).to(x.dtype)
-            xs = None
-            for block in self.resblocks[i * n_kernels:(i + 1) * n_kernels]:
-                xs = block(x) if xs is None else xs + block(x)
-            x = xs / n_kernels
-        x = F.leaky_relu(x)                      # slope 0.01, as the reference
-        return torch.tanh(_wide(_conv(x, self.conv_post)))[:, 0]
+        with span('gradtts.vocoder'):
+            n_kernels = len(self.cfg.resblock_kernel_sizes)
+            x = _conv(mel.transpose(1, 2).to(self.compute_dtype),
+                      self.conv_pre)
+            for i, up in enumerate(self.ups):
+                x = F.leaky_relu(x, LRELU_SLOPE)
+                u = up.stride[0]
+                y = F.conv_transpose1d(x, up.weight.to(x.dtype), None, u,
+                                       (up.kernel_size[0] - u) // 2)
+                x = (_wide(y) + up.bias[:, None]).to(x.dtype)
+                xs = None
+                for block in self.resblocks[i * n_kernels:
+                                            (i + 1) * n_kernels]:
+                    xs = block(x) if xs is None else xs + block(x)
+                x = xs / n_kernels
+            x = F.leaky_relu(x)                 # slope 0.01, as the reference
+            return torch.tanh(_wide(_conv(x, self.conv_post)))[:, 0]
 
 
 # --- discriminators and losses (vocoder training) -----------------------------

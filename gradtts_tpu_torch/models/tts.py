@@ -28,6 +28,7 @@ from gradtts_tpu_torch.models.text_encoder import TextEncoder
 from gradtts_tpu_torch.ops.mas import maximum_path
 from gradtts_tpu_torch.ops.seq import (duration_loss, generate_path,
                                        sequence_mask)
+from gradtts_tpu_torch.utils.profiling import span
 
 
 class GradTTS(nn.Module):
@@ -85,7 +86,8 @@ class GradTTS(nn.Module):
         """-> f32 (mu_x [B, Tx, F], logw [B, Tx, 1], x_mask [B, Tx, 1]).
         ``generator`` draws the dropout masks under ``train()``; ``spk_vec``
         is the speaker as :meth:`embed_speaker` returns it."""
-        return self.encoder(x, x_lengths, generator, spk_vec)
+        with span('gradtts.encoder'):
+            return self.encoder(x, x_lengths, generator, spk_vec)
 
     def estimate(self, x_t, mask, mu, t, spk_vec=None):
         """Score estimate [B, Ty, F] (f32) for x_t, mu [B, Ty, F], mask
@@ -142,31 +144,34 @@ def synthesize(model: GradTTS, x, x_lengths, n_timesteps: int,
     """
     if sampler not in ('euler', 'dpm'):
         raise ValueError(f'unknown sampler {sampler!r}: euler or dpm')
-    spk_vec = model.embed_speaker(spk)
-    mu_x, logw, x_mask = model.encode(x, x_lengths, spk_vec=spk_vec)
-    w = torch.exp(logw[..., 0]) * x_mask[..., 0]                 # [B, Tx]
-    w_ceil = torch.ceil(w) * length_scale
-    y_lengths = torch.clamp(w_ceil.sum(dim=1), min=1.0)
-    y_lengths = torch.clamp(y_lengths, max=y_max_length).to(torch.int32)
+    with span('gradtts.synthesize'):
+        spk_vec = model.embed_speaker(spk)
+        mu_x, logw, x_mask = model.encode(x, x_lengths, spk_vec=spk_vec)
+        with span('gradtts.align'):
+            w = torch.exp(logw[..., 0]) * x_mask[..., 0]         # [B, Tx]
+            w_ceil = torch.ceil(w) * length_scale
+            y_lengths = torch.clamp(w_ceil.sum(dim=1), min=1.0)
+            y_lengths = torch.clamp(y_lengths,
+                                    max=y_max_length).to(torch.int32)
+            y_mask = sequence_mask(y_lengths,
+                                   y_max_length)[..., None].to(mu_x.dtype)
+            attn_mask = x_mask[:, :, 0, None] * y_mask[:, None, :, 0]
+            attn = generate_path(w_ceil, attn_mask)              # [B, Tx, Ty]
+            mu_y = torch.einsum('bxy,bxf->byf', attn, mu_x)
 
-    y_mask = sequence_mask(y_lengths, y_max_length)[..., None].to(mu_x.dtype)
-    attn_mask = x_mask[:, :, 0, None] * y_mask[:, None, :, 0]    # [B, Tx, Ty]
-    attn = generate_path(w_ceil, attn_mask)
-    mu_y = torch.einsum('bxy,bxf->byf', attn, mu_x)
-
-    if noise is None:
-        noise = torch.randn(mu_y.shape, generator=generator,
-                            dtype=mu_y.dtype, device=mu_y.device)
-    z = mu_y + noise.to(mu_y) / temperature
-    dec_args = (model.decoder.estimator, z, y_mask, mu_y, n_timesteps,
-                model.decoder.beta_min, model.decoder.beta_max)
-    if sampler == 'dpm':
-        dec = reverse_diffusion_dpm(*dec_args, spk=spk_vec)
-    else:
-        dec = reverse_diffusion(*dec_args, stoc=stoc, spk=spk_vec,
-                                noise=stoc_noise, generator=generator)
-    return SynthesisResult(mu_y * y_mask, dec * y_mask, attn, y_lengths,
-                           y_mask)
+        if noise is None:
+            noise = torch.randn(mu_y.shape, generator=generator,
+                                dtype=mu_y.dtype, device=mu_y.device)
+        z = mu_y + noise.to(mu_y) / temperature
+        dec_args = (model.decoder.estimator, z, y_mask, mu_y, n_timesteps,
+                    model.decoder.beta_min, model.decoder.beta_max)
+        if sampler == 'dpm':
+            dec = reverse_diffusion_dpm(*dec_args, spk=spk_vec)
+        else:
+            dec = reverse_diffusion(*dec_args, stoc=stoc, spk=spk_vec,
+                                    noise=stoc_noise, generator=generator)
+        return SynthesisResult(mu_y * y_mask, dec * y_mask, attn, y_lengths,
+                               y_mask)
 
 
 def _log_prior_grid(y, mu_x):
@@ -239,31 +244,36 @@ def compute_loss(model: GradTTS, x, x_lengths, y, y_lengths,
     spk_vec = model.embed_speaker(spk)
     mu_x, logw, x_mask = model.encode(x, x_lengths, generator, spk_vec)
     y_max_length = y.shape[1]
-    y_mask = sequence_mask(y_lengths, y_max_length)[..., None].to(x_mask)
-    attn_mask = x_mask[:, :, None, 0] * y_mask[:, None, :, 0]  # [B, Tx, Ty]
-    with torch.no_grad():
-        attn = maximum_path(_log_prior_grid(y, mu_x).contiguous(),
-                            attn_mask.contiguous())
+    # the duration loss lies between MAS and the crop: the span holds it too
+    with span('gradtts.align'):
+        y_mask = sequence_mask(y_lengths, y_max_length)[..., None].to(x_mask)
+        attn_mask = x_mask[:, :, None, 0] * y_mask[:, None, :, 0]
+        with torch.no_grad():
+            attn = maximum_path(_log_prior_grid(y, mu_x).contiguous(),
+                                attn_mask.contiguous())      # [B, Tx, Ty]
 
-    logw_hat = torch.log(1e-8 + torch.sum(attn, dim=-1))[..., None] * x_mask
-    n_tokens, n_frames = (None, None) if counts is None else counts
-    dur = duration_loss(logw, logw_hat, x_lengths, n_tokens)
+        logw_hat = torch.log(1e-8 + torch.sum(attn, dim=-1))[..., None] \
+            * x_mask
+        n_tokens, n_frames = (None, None) if counts is None else counts
+        dur = duration_loss(logw, logw_hat, x_lengths, n_tokens)
 
-    if out_size is not None and out_size < y_max_length:
-        if offset is None:
-            offset = crop_offsets(y_lengths, out_size, generator)
-        # as dynamic_slice, a start past Ty - out_size is clamped
-        offset = offset.clamp(0, y_max_length - out_size)
-        frames = offset[:, None] + torch.arange(out_size, device=y.device)
-        y = torch.gather(y, 1, frames[:, :, None].expand(-1, -1, y.shape[2]))
-        attn = torch.gather(attn, 2,
-                            frames[:, None, :].expand(-1, attn.shape[1], -1))
-        y_mask = sequence_mask(y_lengths.clamp_max(out_size),
-                               out_size)[..., None].to(y_mask)
-        y = y * y_mask
-        attn = attn * y_mask[:, None, :, 0]
+        if out_size is not None and out_size < y_max_length:
+            if offset is None:
+                offset = crop_offsets(y_lengths, out_size, generator)
+            # as dynamic_slice, a start past Ty - out_size is clamped
+            offset = offset.clamp(0, y_max_length - out_size)
+            frames = offset[:, None] + torch.arange(out_size,
+                                                    device=y.device)
+            y = torch.gather(y, 1,
+                             frames[:, :, None].expand(-1, -1, y.shape[2]))
+            attn = torch.gather(
+                attn, 2, frames[:, None, :].expand(-1, attn.shape[1], -1))
+            y_mask = sequence_mask(y_lengths.clamp_max(out_size),
+                                   out_size)[..., None].to(y_mask)
+            y = y * y_mask
+            attn = attn * y_mask[:, None, :, 0]
 
-    mu_y = torch.einsum('bxy,bxf->byf', attn, mu_x)
+        mu_y = torch.einsum('bxy,bxf->byf', attn, mu_x)
     estimator = model.decoder.estimator
     if remat:
         # the U-Net draws nothing at random: no RNG state to stash
@@ -292,13 +302,14 @@ def get_score_fn(model: GradTTS, x, x_lengths, y, y_lengths, spk=None):
     [B, D])."""
     spk_vec = model.embed_speaker(spk)
     mu_x, _logw, x_mask = model.encode(x, x_lengths, spk_vec=spk_vec)
-    y_mask = sequence_mask(y_lengths, y.shape[1])[..., None].to(x_mask)
-    attn_mask = x_mask[:, :, None, 0] * y_mask[:, None, :, 0]  # [B, Tx, Ty]
-    with torch.no_grad():
-        attn = maximum_path(_log_prior_grid(y, mu_x).contiguous(),
-                            attn_mask.contiguous())
-    mu_y = torch.einsum('bxy,bxf->byf', attn, mu_x)
-    mask = y_mask[..., 0]
+    with span('gradtts.align'):
+        y_mask = sequence_mask(y_lengths, y.shape[1])[..., None].to(x_mask)
+        attn_mask = x_mask[:, :, None, 0] * y_mask[:, None, :, 0]
+        with torch.no_grad():
+            attn = maximum_path(_log_prior_grid(y, mu_x).contiguous(),
+                                attn_mask.contiguous())      # [B, Tx, Ty]
+        mu_y = torch.einsum('bxy,bxf->byf', attn, mu_x)
+        mask = y_mask[..., 0]
 
     def score_fn(x_t, t):
         return model.estimate(x_t, mask, mu_y, t, spk_vec)

@@ -35,6 +35,7 @@ from gradtts_tpu_torch.likelihood.ode import (LikelihoodResult,
 from gradtts_tpu_torch.likelihood.sde import SpeechSDE
 from gradtts_tpu_torch.models.tts import GradTTS, get_score_fn
 from gradtts_tpu_torch.nbest.lists import NBestList
+from gradtts_tpu_torch.utils.profiling import span
 
 
 @torch.no_grad()
@@ -57,16 +58,17 @@ def score_batch(model: GradTTS, x, x_lengths, y, y_lengths,
     ``.score`` holds the [B] scores, -(prior_logp + delta_logp); callers of
     the adaptive integrator (``n_euler=0``) check ``.converged``. The
     forward-mode derivatives need no autograd graph, so none is built."""
-    score_fn, mu_y, y_mask = get_score_fn(model, x, x_lengths, y, y_lengths,
-                                          spk)
-    dec = model.decoder
-    sde = SpeechSDE(beta_min=dec.beta_min, beta_max=dec.beta_max,
-                    N=int(dec.estimator.pe_scale), mu=mu_y, mask=y_mask)
-    likelihood_fn = get_likelihood_fn(
-        sde, score_fn, rtol=rtol, atol=atol, euler=n_euler,
-        max_steps=max_steps,
-        group=None if mesh is None else mesh.get_group('data'))
-    return likelihood_fn(y, generator=generator, epsilon=epsilon)
+    with span('gradtts.score'):
+        score_fn, mu_y, y_mask = get_score_fn(model, x, x_lengths, y,
+                                              y_lengths, spk)
+        dec = model.decoder
+        sde = SpeechSDE(beta_min=dec.beta_min, beta_max=dec.beta_max,
+                        N=int(dec.estimator.pe_scale), mu=mu_y, mask=y_mask)
+        likelihood_fn = get_likelihood_fn(
+            sde, score_fn, rtol=rtol, atol=atol, euler=n_euler,
+            max_steps=max_steps,
+            group=None if mesh is None else mesh.get_group('data'))
+        return likelihood_fn(y, generator=generator, epsilon=epsilon)
 
 
 class NBestScorer:

@@ -14,6 +14,7 @@ the variance clamped at 0, as ``_reference`` computes them.
 import torch
 
 from gradtts_tpu_torch.ops import _build
+from gradtts_tpu_torch.utils.profiling import span
 
 _THREADS = 256             # csrc/groupnorm_mish.cu: THREADS
 _TARGET_BLOCKS = 4 * 132   # four blocks per SM of an H100
@@ -181,8 +182,9 @@ class GroupNormMishFn(torch.autograd.Function):
             return groupnorm_mish_plain(args['x'], mask, args['gamma'],
                                         args['beta'], ctx.groups, ctx.eps)
 
-        return torch.func.jvp(plain, tuple(primals[k] for k in tangents),
-                              tuple(tangents.values()))[1]
+        with span('gradtts.unet.k1_tangent'):
+            return torch.func.jvp(plain, tuple(primals[k] for k in tangents),
+                                  tuple(tangents.values()))[1]
 
 
 def groupnorm_mish(x, mask, gamma, beta, groups: int = 8, eps: float = 1e-5):

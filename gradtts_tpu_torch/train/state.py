@@ -17,6 +17,7 @@ from gradtts_tpu_torch.models.layers import RowShard
 from gradtts_tpu_torch.models.tts import GradTTS, loss_counts
 from gradtts_tpu_torch.parallel.tensor import (share_replicated_grads,
                                                split_parameters)
+from gradtts_tpu_torch.utils.profiling import span
 
 METRICS = ('loss/total', 'loss/duration', 'loss/prior', 'loss/diffusion',
            'grad_norm/encoder', 'grad_norm/decoder')
@@ -82,28 +83,32 @@ def train_step(model, optimizer, batch: dict, out_size,
     (``share_replicated_grads``), the clip's norms are the whole model's
     (:func:`subtree_clip`), and Adam, elementwise, steps each rank's
     blocks as one process steps those elements."""
-    net, counts, ranks = model, None, 1
-    if isinstance(model, DistributedDataParallel):
-        net, group = model.module, model.process_group
-        ranks = dist.get_world_size(group)
-        generator = RowShard(generator, dist.get_rank(group), ranks)
-        counts = loss_counts(batch['x_lengths'], batch['y_lengths'],
-                             batch['y'].shape[1], out_size)
-        dist.all_reduce(counts, group=group)
-    optimizer.zero_grad(set_to_none=True)
-    res = model(batch['x'], batch['x_lengths'], batch['y'],
-                batch['y_lengths'], out_size=out_size, generator=generator,
-                spk=batch.get('spk'), remat=remat, counts=counts,
-                **(draws or {}))
-    total = res.dur_loss + res.prior_loss + res.diff_loss
-    (total if counts is None else total * ranks).backward()
-    share_replicated_grads(net)
-    enc_norm, dec_norm = subtree_clip(net, grad_clip_norm)
-    optimizer.step()
-    losses = (res.dur_loss, res.prior_loss, res.diff_loss)
-    if counts is not None:
-        losses = torch.stack(losses).detach()
-        dist.all_reduce(losses, group=group)
-        total = losses[0] + losses[1] + losses[2]
-    values = (total, *losses, enc_norm, dec_norm)
-    return {k: v.detach() for k, v in zip(METRICS, values)}
+    with span('gradtts.train_step'):
+        net, counts, ranks = model, None, 1
+        if isinstance(model, DistributedDataParallel):
+            net, group = model.module, model.process_group
+            ranks = dist.get_world_size(group)
+            generator = RowShard(generator, dist.get_rank(group), ranks)
+            counts = loss_counts(batch['x_lengths'], batch['y_lengths'],
+                                 batch['y'].shape[1], out_size)
+            dist.all_reduce(counts, group=group)
+        optimizer.zero_grad(set_to_none=True)
+        with span('gradtts.train.forward'):
+            res = model(batch['x'], batch['x_lengths'], batch['y'],
+                        batch['y_lengths'], out_size=out_size,
+                        generator=generator, spk=batch.get('spk'), remat=remat,
+                        counts=counts, **(draws or {}))
+            total = res.dur_loss + res.prior_loss + res.diff_loss
+        with span('gradtts.train.backward'):
+            (total if counts is None else total * ranks).backward()
+        with span('gradtts.train.optimizer'):
+            share_replicated_grads(net)
+            enc_norm, dec_norm = subtree_clip(net, grad_clip_norm)
+            optimizer.step()
+        losses = (res.dur_loss, res.prior_loss, res.diff_loss)
+        if counts is not None:
+            losses = torch.stack(losses).detach()
+            dist.all_reduce(losses, group=group)
+            total = losses[0] + losses[1] + losses[2]
+        values = (total, *losses, enc_norm, dec_norm)
+        return {k: v.detach() for k, v in zip(METRICS, values)}

@@ -10,9 +10,15 @@ Counterpart of gradtts_tpu/utils/profiling.py (``trace`` :23,
 - ``time_jitted(fn, *args)``: wall time of a call that ends when the
   device has finished its outputs, after warm-up calls;
 - ``Throughput``: running audio-seconds a second (and items) counters, the
-  RTF formula ``t * sr / (frames * hop)`` as a rate.
+  RTF formula ``t * sr / (frames * hop)`` as a rate;
+- ``span(name)``: the program's own spans at its stage boundaries, a
+  host event of the capture while a profiler captures (``trace`` or any
+  other ``torch.profiler.profile``) and nothing otherwise. Their names are
+  ``SPANS``; ``RECORDED`` keeps each captured span's interval. A span's
+  parent is the span open when it started.
 """
 
+import collections
 import contextlib
 import logging
 import os
@@ -20,10 +26,73 @@ import time
 from typing import Callable, Optional
 
 import torch
+from torch._C._profiler import _RecordFunctionFast
 from torch.profiler import (ProfilerActivity, profile,
                             tensorboard_trace_handler)
 
 log = logging.getLogger('gradtts_tpu_torch.profiling')
+
+SPANS = (
+    'gradtts.synthesize',       # models/tts.py synthesize: a call (root)
+    'gradtts.score',            # nbest/scoring.py score_batch: a call (root)
+    'gradtts.train_step',       # train/state.py train_step: a step (root)
+    'gradtts.encoder',          # GradTTS.encode: text encoder, durations
+    'gradtts.align',            # durations and path, or grid, MAS, crop; mu_y
+    'gradtts.decoder',          # the sampler loop, Euler or DPM-Solver
+    'gradtts.likelihood',       # likelihood/ode.py: Euler or Dormand-Prince
+    'gradtts.unet',             # a score U-Net evaluation (jvp: both halves)
+    'gradtts.unet.embed',       # time, speaker MLPs; inputs to channels-last
+    'gradtts.unet.resnet',      # a ResnetBlock (an up level's first: its cat)
+    'gradtts.unet.attention',   # a Residual(Rezero(LinearAttention)): K2 + K3
+    'gradtts.unet.resample',    # a down-, up-sample or Identity, its mask ops
+    'gradtts.unet.out',         # final_block and final_conv
+    'gradtts.unet.k1_tangent',  # GroupNormMishFn.jvp: K1's plain tangent
+    'gradtts.train.forward',    # train_step: the losses
+    'gradtts.train.backward',   # train_step: .backward()
+    'gradtts.train.optimizer',  # train_step: shared grads, clip, Adam
+    'gradtts.vocoder',          # models/hifigan.py Generator.forward
+)
+
+_OFF = contextlib.nullcontext()
+# (name, start ns, end ns) of the spans captured, the newest last, on the
+# clock of the profiler's own events (Unix time): a reader that holds only
+# a capture's device activity and launches assigns kernels to spans by it
+RECORDED = collections.deque(maxlen=1 << 18)
+
+
+class _Span:
+    """A span under a capture: a host-only event of the capture (a
+    ``cpu_op``, where a ``record_function`` would add a device-side copy
+    that reads as device work where events carry no activity type) and its
+    interval in ``RECORDED``, which encloses the event's."""
+
+    __slots__ = ('name', 'event', 'start')
+
+    def __init__(self, name):
+        self.name = name
+        self.event = _RecordFunctionFast(name)
+
+    def __enter__(self):
+        self.start = time.time_ns()
+        self.event.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.event.__exit__(*exc)
+        RECORDED.append((self.name, self.start, time.time_ns()))
+        return False
+
+
+def span(name: str):
+    """A host event of the capture named ``name``, with its interval kept
+    in ``RECORDED``, while a ``torch.profiler`` capture is on; else one
+    shared ``nullcontext`` (well under a microsecond, where a
+    ``record_function`` costs its own ~10 us whether or not a profiler
+    runs). ``name`` is one of ``SPANS``. A span launches nothing on the
+    device and leaves the work it wraps as it is."""
+    if torch._C._autograd._profiler_enabled():
+        return _Span(name)
+    return _OFF
 
 
 @contextlib.contextmanager
