@@ -30,6 +30,13 @@ Phases, each printing one JSON line:
               128-frame crops), MAS at [16, 192, 384] and K1 at the
               channel blocks of the tp step (B 16, C / 2, 4 groups) and
               of the likelihood cell split likewise (B 8, 512 frames);
+     conv3x3  the Block convolution's kernel at every Block width against
+              its plain version in float64, primal and tangent; timed at
+              the widths of the n-best (B 50, 512 frames) and generate (B
+              32, 768 frames) cells against cuDNN's f32 call (TF32 off),
+              each timed launch against float64 too; its launches are
+              counted on every path below (25 a U-Net evaluation in f32,
+              twice that in forward mode, none in bf16);
   3. slice    a full-width ljspeech GradTTS with every weight drawn from a
               seed: 10-step synthesis (B 2, Tx 64, Ty 256, f32) on the GPU
               against the same on the CPU (plain versions);
@@ -952,6 +959,147 @@ def _kernel_mas(device, rng, st, path, shape):
     emit(line)
 
 
+# ---- conv3x3 ----------------------------------------------------------------
+
+# the f32 cells whose Block convolutions take the conv3x3 kernel: (B, frames
+# at the U-Net's top level), the benchmark's tedlium-spk-nbest-b50 and
+# tedlium-spk-generate-b32
+CONV_CELLS = {'nbest': (50, 512), 'generate': (32, 768)}
+# a launch's output against the plain version in float64: within 2^-18 of
+# sum |w| |x * mask| + |b| (tests/test_torch_conv3x3.py _err_bound says why)
+CONV_TOL = 2.0 ** -18
+
+
+def _conv_inputs(device, B, c_in, c_out, F, T, seed):
+    import torch
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((B, c_in, F, T), generator=g, device=device) \
+        .contiguous(memory_format=torch.channels_last)
+    mask = torch.ones((B, 1, 1, T), device=device)
+    mask[-1, ..., T - T // 3:] = 0
+    w = torch.randn((c_out, c_in, 3, 3), generator=g, device=device) \
+        * (9 * c_in) ** -0.5
+    b = torch.randn((c_out,), generator=g, device=device) * 0.1
+    return x, mask, w, b
+
+
+def _conv_err(outs, x, mask, w, b):
+    """The largest error of the kernel's outputs ``outs`` (with the bias,
+    without it) over sum |w| |x * mask| + |b|, against the plain version
+    in float64."""
+    from gradtts_tpu_torch.ops import conv3x3 as c3
+    import torch
+    d = [v.double() for v in (x, mask, w)]
+    bias = b.double().view(-1, 1, 1)
+    want = c3.conv3x3_plain(*d)
+    mag = c3.conv3x3_plain((d[0] * d[1]).abs(), torch.ones_like(d[1]),
+                           d[2].abs()).clamp_min(1e-30)
+    errs = [float(((out.double() - want - c).abs() / (mag + c.abs())).max())
+            for out, c in zip(outs, (bias, bias * 0))]
+    del want, mag, d
+    return max(errs)
+
+
+def phase_conv3x3(device):
+    """The Block convolution's kernel (ops/conv3x3.py): at every Block
+    width against the plain version in float64 (B 2, the cells' F and
+    frames), within CONV_TOL of sum |w| |x| (tests/test_torch_conv3x3.py
+    says why), primal and tangent; then timed at each width of the n-best
+    and generate cells (B 50 x 512 and B 32 x 768 frames at the top level)
+    against cuDNN's f32 call with TF32 off (``library_ms``; the widths
+    where it is not faster are listed) and the plain version (x * mask,
+    then that call), the timed launch's output and a launch without the
+    bias (the tangent's) held to the float64 version at CONV_TOL too. Its
+    launches are counted on each path below, from 0 (``_counted``).
+    Returns the kernels line's figures, the n-best cell's sums per U-Net
+    evaluation."""
+    import torch
+    from torch.nn import functional as F
+    from gradtts_tpu_torch.models.diffusion import GradLogPEstimator2d
+    from gradtts_tpu_torch.ops import conv3x3 as c3
+    torch.backends.cudnn.allow_tf32 = False
+    blocks = GradLogPEstimator2d(64, n_spks=675,
+                                 spk_emb_dim=128).block_widths()
+    widths = sorted(set(blocks), key=blocks.index)
+    worst = 0.0
+    for c_in, c_out, level in widths:
+        for T in (CONV_CELLS['nbest'][1], CONV_CELLS['generate'][1]):
+            F_, T_ = 80 >> level, T >> level
+            x, mask, w, b = _conv_inputs(device, 2, c_in, c_out, F_, T_,
+                                         c_in + T_)
+            got = c3.conv3x3(x, mask, w, b)
+            with torch.no_grad():
+                _, tan = torch.func.jvp(lambda a: c3.conv3x3(a, mask, w, b),
+                                        (x,), (x * 0.5,))
+            torch.cuda.synchronize()
+            rel = max(_conv_err((got,), x, mask, w, b),
+                      _conv_err((tan,), x * 0.5, mask, w, b * 0))
+            worst = max(worst, rel)
+            require(rel <= CONV_TOL, f'conv3x3 {(c_in, c_out, F_, T_)}: '
+                                     f'error {rel} of sum |w x|')
+    lines, sums, slower, worst_timed = {}, {}, [], 0.0
+    for cell, (B, T) in CONV_CELLS.items():
+        st = sums[cell] = {'ms': 0.0, 'device_ms': 0.0, 'plain_ms': 0.0,
+                           'library_ms': 0.0, 'bytes_ms': 0.0, 'ops_ms': 0.0}
+        for c_in, c_out, level in widths:
+            F_, T_ = 80 >> level, T >> level
+            mult = blocks.count((c_in, c_out, level))
+            x, mask, w, b = _conv_inputs(device, B, c_in, c_out, F_, T_, 0)
+            taps = c3.tap_major(w)
+            xm = x * mask
+            out = {}
+
+            def kern():
+                out['y'] = c3._launch(x, mask, taps, b)
+
+            ms, dev_ms = cuda_ms(kern, 20), device_ms(kern)
+            plain_ms = cuda_ms(lambda: c3.conv3x3_plain(x, mask, w, b), 3, 1)
+            lib_ms = cuda_ms(lambda: F.conv2d(xm, w, b, padding=1), 3, 1)
+            del xm
+            rel = _conv_err((out.pop('y'), c3._launch(x, mask, taps, None)),
+                            x, mask, w, b)
+            worst_timed = max(worst_timed, rel)
+            flops = 18 * B * F_ * T_ * c_in * c_out
+            nbytes = 4 * (B * F_ * T_ * (c_in + c_out) + B * T_
+                          + 9 * c_in * c_out + c_out)
+            b_ms, by = bound(nbytes, flops, 'float32')
+            key = f'{c_in}->{c_out} F{F_} T{T_}'
+            lines[f'{cell} {key}'] = {
+                'blocks': mult, 'ms': ms, 'device_ms': dev_ms,
+                'plain_ms': plain_ms, 'library_ms': lib_ms,
+                'bound_ms': b_ms, 'bound_by': by,
+                'tflops': flops / dev_ms * 1e-9,
+                'share_of_f32_peak': flops / PEAK_FLOPS['float32']
+                / (dev_ms * 1e-3), 'max_err_of_sum_abs': rel}
+            require(rel <= CONV_TOL, f'conv3x3 {cell} {key}: error {rel} of '
+                                     'sum |w x|')
+            if ms >= lib_ms:
+                slower.append(f'{cell} {key}')
+            for k, v in (('ms', ms), ('device_ms', dev_ms),
+                         ('plain_ms', plain_ms), ('library_ms', lib_ms),
+                         ('bytes_ms', nbytes / HBM_BPS * 1e3),
+                         ('ops_ms', flops / PEAK_FLOPS['float32'] * 1e3)):
+                st[k] += mult * v
+            del x, mask, w, b, taps
+            torch.cuda.empty_cache()
+    emit({'phase': 'conv3x3', 'max_err_of_sum_abs': worst,
+          'max_err_of_sum_abs_timed': worst_timed,
+          'per_evaluation': sums, 'widths': lines,
+          'slower_than_cudnn': slower})
+    st = sums['nbest']
+    return {'name': 'conv3x3', 'route': 'cuda',
+            'source': 'gradtts_tpu_torch/csrc/conv3x3.cu',
+            'replaces': None,
+            'max_err_of_sum_abs': max(worst, worst_timed), 'ms': st['ms'],
+            'device_ms': st['device_ms'], 'plain_ms': st['plain_ms'],
+            'bound_ms': max(st['bytes_ms'], st['ops_ms']),
+            'bound_by': 'bytes' if st['bytes_ms'] >= st['ops_ms']
+            else 'operations',
+            'library_ms': st['library_ms'],
+            'per': 'sum over the 25 Block convolutions of one U-Net '
+                   'evaluation (primal), B 50, Ty 512, f32'}
+
+
 # ---- slice ------------------------------------------------------------------
 
 
@@ -978,6 +1126,7 @@ def seeded_state_dict(model, seed):
 
 def _counted():
     """{kernel: its wrapper}, each wrapper counting its launches."""
+    from gradtts_tpu_torch.ops import conv3x3 as c3
     from gradtts_tpu_torch.ops import groupnorm_mish as gn
     from gradtts_tpu_torch.ops import linear_attention as la
     from gradtts_tpu_torch.ops import mas
@@ -988,7 +1137,7 @@ def _counted():
             'attention_bwd_sweep2': la.attention_bwd_sweep2,
             'attention_jvp_stats': la.attention_jvp_stats,
             'attention_jvp_apply': la.attention_jvp_apply,
-            'maximum_path': mas.maximum_path}
+            'maximum_path': mas.maximum_path, 'conv3x3': c3.conv3x3}
 
 
 def reset_counts():
@@ -1004,22 +1153,40 @@ def read_counts():
 # per training step (one U-Net forward and backward, one MAS) and per
 # likelihood score of ``steps`` Euler steps (one MAS; every step one U-Net
 # forward, whose jvp adds K6 and K7 to each attention and recomputes K1's
-# plain version for its tangent)
+# plain version for its tangent), in bf16: no Block convolution takes the
+# conv3x3 kernel (``in_f32`` gives the f32 counts)
 EXPECTED_COUNTS = {'groupnorm_mish': 25 * STEPS, 'attention_stats': 6 * STEPS,
                    'attention_apply': 6 * STEPS, 'attention_bwd_sweep1': 0,
                    'attention_bwd_sweep2': 0, 'attention_jvp_stats': 0,
-                   'attention_jvp_apply': 0, 'maximum_path': 0}
+                   'attention_jvp_apply': 0, 'maximum_path': 0, 'conv3x3': 0}
 TRAIN_COUNTS = {'groupnorm_mish': 25, 'attention_stats': 6,
                 'attention_apply': 6, 'attention_bwd_sweep1': 6,
                 'attention_bwd_sweep2': 6, 'attention_jvp_stats': 0,
-                'attention_jvp_apply': 0, 'maximum_path': 1}
+                'attention_jvp_apply': 0, 'maximum_path': 1, 'conv3x3': 0}
 
 
 def likelihood_counts(steps):
     return {'groupnorm_mish': 25 * steps, 'attention_stats': 6 * steps,
             'attention_apply': 6 * steps, 'attention_bwd_sweep1': 0,
             'attention_bwd_sweep2': 0, 'attention_jvp_stats': 6 * steps,
-            'attention_jvp_apply': 6 * steps, 'maximum_path': 1}
+            'attention_jvp_apply': 6 * steps, 'maximum_path': 1,
+            'conv3x3': 0}
+
+
+# conv3x3 launches a U-Net evaluation in f32 with cuDNN's TF32 off, one a
+# Block whose conv ``ops.conv3x3.fits``: all 25 at the published width
+# (dim 64); 1 with the convs split over a 2-wide 'model' axis, where
+# ``parallel.mesh.split_dim`` leaves final_block's whole; 8 at the quality
+# gate's dec_dim 16 (the level-2 and middle Blocks, C_out 64)
+CONVS_WHOLE, CONVS_SPLIT, CONVS_GATE = 25, 1, 8
+
+
+def in_f32(counts, convs=CONVS_WHOLE, tangent=False):
+    """``counts`` of a path (bf16's) on the same path in f32 with cuDNN's
+    TF32 off: ``convs`` conv3x3 launches each U-Net evaluation (each
+    evaluation runs 25 K1), twice that in forward mode (``tangent``)."""
+    evals = counts['groupnorm_mish'] // 25
+    return {**counts, 'conv3x3': evals * convs * (2 if tangent else 1)}
 
 
 def _slice_batch(cfg, rng, bsz=2, t_x=64):
@@ -1050,8 +1217,8 @@ def _gpu_vs_cpu_synthesis(make_model, device, x, x_lengths, t_y, what, **kw):
     on both sides with TF32 off; cuDNN and oneDNN pick other conv
     algorithms and sum orders, ~1e-5 relative per U-Net call, and the
     steps grow the mel and its error alike: 1e-3 of the largest value
-    leaves a wide margin), the kernels launched as EXPECTED_COUNTS on the
-    GPU and never on the CPU."""
+    leaves a wide margin), the kernels launched as EXPECTED_COUNTS in f32
+    (``in_f32``) on the GPU and never on the CPU."""
     import torch
     from gradtts_tpu_torch.models.tts import synthesize
     outs = []
@@ -1082,7 +1249,7 @@ def _gpu_vs_cpu_synthesis(make_model, device, x, x_lengths, t_y, what, **kw):
          f'{what}: mel not finite'),
         (err <= SLICE_TOL * scale,
          f'{what}: decoder max abs err {err} over {SLICE_TOL * scale}'),
-        (counts == EXPECTED_COUNTS, f'{what}: GPU launches {counts}'),
+        (counts == in_f32(EXPECTED_COUNTS), f'{what}: GPU launches {counts}'),
         (not any(cpu_counts.values()), f'{what}: the CPU run launched '
                                        'kernels')]
     return entry, checks
@@ -1255,12 +1422,13 @@ def phase_profiling(run, card):
 TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL = 1e-4, 1e-3
 
 
-def _gpu_vs_cpu_loss(make_model, device, batch, what, **kw):
+def _gpu_vs_cpu_loss(make_model, device, batch, what, convs=CONVS_WHOLE,
+                     **kw):
     """compute_loss + backward of ``make_model(dev)`` on both devices with
     the same crop offsets, diffusion times and noise (``kw``). Returns
     (line entries, checks) at TRAIN_LOSS_RTOL and TRAIN_GRAD_TOL, the MAS
-    paths equal and the kernels launched as TRAIN_COUNTS on the GPU and
-    never on the CPU."""
+    paths equal and the kernels launched as TRAIN_COUNTS in f32 (``convs``
+    conv3x3 launches in the forward) on the GPU and never on the CPU."""
     import numpy as np
     import torch
     from gradtts_tpu_torch.models.tts import compute_loss
@@ -1312,7 +1480,8 @@ def _gpu_vs_cpu_loss(make_model, device, batch, what, **kw):
                                   f'{worst} of its largest value'),
         (noise <= 1e-7 * largest, f'{what}: a key bias grad is not rounding '
                                   'noise'),
-        (counts == TRAIN_COUNTS, f'{what}: GPU launches {counts}'),
+        (counts == in_f32(TRAIN_COUNTS, convs),
+         f'{what}: GPU launches {counts}'),
         (not any(cpu_counts.values()), f'{what}: the CPU run launched '
                                        'kernels')]
     return entry, checks
@@ -1583,8 +1752,8 @@ def _seeded_model(cfg, ckpt, device):
 def _gpu_vs_cpu_score(make_model, device, batch, eps, what, **kw):
     """A LIK_SLICE_STEPS-step score_batch of ``make_model(dev)`` on both
     devices with the same probe ``eps``. Returns (line entries, checks) at
-    LIK_SLICE_RTOL, the kernels launched as likelihood_counts on the GPU
-    and never on the CPU."""
+    LIK_SLICE_RTOL, the kernels launched as likelihood_counts in f32
+    (``in_f32``, forward mode) on the GPU and never on the CPU."""
     import torch
     from gradtts_tpu_torch.nbest.scoring import score_batch
     outs = []
@@ -1614,7 +1783,7 @@ def _gpu_vs_cpu_score(make_model, device, batch, eps, what, **kw):
          f'{what}: GPU result not finite'),
         (max(rel.values()) <= LIK_SLICE_RTOL and z_frac <= LIK_SLICE_RTOL,
          f'{what}: GPU vs CPU {rel}, z {z_frac}'),
-        (counts == likelihood_counts(LIK_SLICE_STEPS),
+        (counts == in_f32(likelihood_counts(LIK_SLICE_STEPS), tangent=True),
          f'{what}: GPU launches {counts}'),
         (not any(cpu_counts.values()), f'{what}: the CPU run launched '
                                        'kernels')]
@@ -2750,7 +2919,7 @@ def phase_checkpoint_slice(device, ckpt):
                              'other mels'),
         (not line['tensorstore_imported'], 'checkpoint_slice: tensorstore '
                                            'was imported'),
-        (counts == {k: 3 * v for k, v in EXPECTED_COUNTS.items()},
+        (counts == in_f32({k: 3 * v for k, v in EXPECTED_COUNTS.items()}),
          f'checkpoint_slice: launches {counts}')])
     return counts
 
@@ -2951,8 +3120,8 @@ def phase_previews(device, ckpt):
          'previews: mel not finite'),
         (err <= PREVIEW_TOL * scale,
          f'previews: decoder max abs err {err} over {PREVIEW_TOL * scale}'),
-        (counts == {k: v * steps // STEPS for k, v in
-                    EXPECTED_COUNTS.items()},
+        (counts == in_f32({k: v * steps // STEPS for k, v in
+                           EXPECTED_COUNTS.items()}),
          f'previews: launches {counts}'),
         (not any(cpu_counts.values()), 'previews: the CPU run launched')])
     return counts
@@ -3067,7 +3236,7 @@ def phase_generate(device, card, vocoder_ckpt):
             'batch0_lengths_equal': lengths_equal,
             'batch0_max_abs_err': err, 'batch0_max_abs': scale,
             'tol': SLICE_TOL * scale, 'cpu_s': cpu_s, 'launches': counts}
-    three = {k: 3 * v for k, v in EXPECTED_COUNTS.items()}
+    three = in_f32({k: 3 * v for k, v in EXPECTED_COUNTS.items()})
     _check(line, [
         (list(line['wavs_per_batch'].values()) == [8, 8, 4],
          f'generate: wavs per batch {line["wavs_per_batch"]}'),
@@ -3149,8 +3318,8 @@ def phase_inference_zero(device, vocoder_ckpt):
     _check(line, [
         (len(rtf) == len(reference), 'inference_zero: no RTF line a text'),
         (exact, f'inference_zero: mels off synthesize by {err}'),
-        (counts == {k: len(reference) * v
-                    for k, v in EXPECTED_COUNTS.items()},
+        (counts == in_f32({k: len(reference) * v
+                           for k, v in EXPECTED_COUNTS.items()}),
          f'inference_zero: launches {counts}')])
     return counts
 
@@ -3183,8 +3352,9 @@ def phase_playground(ckpt):
         (len(rows) == PLAY_UTTERANCES and all(
             math.isfinite(v) for r in rows for v in r),
          f'playground: lines {rows}'),
-        (counts == {k: calls * v for k, v in
-                    likelihood_counts(PLAY_EULER).items()},
+        (counts == in_f32({k: calls * v for k, v in
+                           likelihood_counts(PLAY_EULER).items()},
+                          tangent=True),
          f'playground: launches {counts}')])
     return counts
 
@@ -3730,7 +3900,9 @@ def phase_ddp(device, card, ckpt, beside):
              f'process\'s by {gloo[compute]["loss_max_rel_err"]}'),
             (got == ranks[1][compute]['metrics'],
              f'ddp: the two ranks report different {compute} metrics'),
-            (all(r[compute]['launches'] == TRAIN_COUNTS for r in ranks),
+            (all(r[compute]['launches'] == (
+                TRAIN_COUNTS if compute == 'bfloat16'
+                else in_f32(TRAIN_COUNTS)) for r in ranks),
              f'ddp: {compute} launches a rank '
              f'{[r[compute]["launches"] for r in ranks]}')]
     saved = [torch.load(r['float32']['saved'], weights_only=True)
@@ -3789,6 +3961,9 @@ def _lik_mesh_held(card, ranks, device, ckpt, adaptive):
     for name in ('tp', 'dp'):
         for compute in ('bfloat16', 'float32'):
             tol, w = LIK_MESH_RTOL[compute], want[compute]
+            launches = expected if compute == 'bfloat16' else in_f32(
+                expected, CONVS_SPLIT if name == 'tp' else CONVS_WHOLE,
+                tangent=True)
             got = [torch.load(r[name][compute]['saved'], weights_only=True)
                    for r in ranks]
             n = LIK_B // (TP_MODEL if name == 'dp' else 1)
@@ -3813,7 +3988,7 @@ def _lik_mesh_held(card, ranks, device, ckpt, adaptive):
                 (_within(entry['max_rel_err'], tol, z_tol),
                  f'{what}: the ranks part from one process by '
                  f'{entry["max_rel_err"]} (bounds {tol}, z {z_tol})'),
-                (all(c == expected for c in entry['launches']),
+                (all(c == launches for c in entry['launches']),
                  f'{what}: launches a rank {entry["launches"]}')]
             if name == 'tp':
                 # both model ranks score the whole batch
@@ -3905,7 +4080,9 @@ def _tp_held(card, ranks, one, device):
              f'{line[compute]["loss_max_rel_err"]}'),
             (got == ranks[1][compute]['metrics'],
              f'tp: the two ranks report different {compute} metrics'),
-            (all(r[compute]['launches'] == TRAIN_COUNTS for r in ranks),
+            (all(r[compute]['launches'] == (
+                TRAIN_COUNTS if compute == 'bfloat16'
+                else in_f32(TRAIN_COUNTS, CONVS_SPLIT)) for r in ranks),
              f'tp: {compute} launches a rank '
              f'{[r[compute]["launches"] for r in ranks]}')]
     _, before, want, grads, _ = one['float32']
@@ -3993,7 +4170,7 @@ def phase_ddp_generate(card, mel_dir, common):
                             / float(np.abs(want).max()))
     counts = {k: sum(r['launches'][k] for r in ranks)
               for k in ranks[0]['launches']}
-    three = {k: 3 * v for k, v in EXPECTED_COUNTS.items()}
+    three = in_f32({k: 3 * v for k, v in EXPECTED_COUNTS.items()})
     _check({'phase': 'ddp_generate', 'card': card, 'ranks': ranks,
             'seconds': seconds, 'files_per_batch': {
                 b: len(f) for b, f in got_names.items()},
@@ -4170,8 +4347,8 @@ def phase_evaluate(device, card, ckpt, vocoder_ckpt):
             == {k: round(v, 4) for k, v in r[0].items()}
             for i, r in enumerate(rows)), 'evaluate: printed metrics are '
                                           'not metrics.json\'s'),
-        (counts == {k: steps * v // STEPS
-                    for k, v in EXPECTED_COUNTS.items()},
+        (counts == in_f32({k: steps * v // STEPS
+                           for k, v in EXPECTED_COUNTS.items()}),
          f'evaluate: launches {counts}')]
     for c in compared:
         u = c['utterance']
@@ -4466,9 +4643,9 @@ def dpm_fidelity(device, steps=DPM_STEPS):
 
 
 # launches of the gate: every train step one MAS and the U-Net forward and
-# backward, then two 10-step syntheses of B 8
-GATE_COUNTS = {k: GATE_STEPS * v + 2 * EXPECTED_COUNTS[k]
-               for k, v in TRAIN_COUNTS.items()}
+# backward, then two 10-step syntheses of B 8, all in f32
+GATE_COUNTS = in_f32({k: GATE_STEPS * v + 2 * EXPECTED_COUNTS[k]
+                      for k, v in TRAIN_COUNTS.items()}, CONVS_GATE)
 
 
 def phase_quality_gate(device, card):
@@ -4496,8 +4673,8 @@ def phase_quality_gate(device, card):
     entry, checks = _gpu_vs_cpu_loss(
         make_model, device, (batch['x'], batch['x_lengths'], batch['y'],
                              batch['y_lengths']), 'quality_gate step',
-        out_size=None, t=torch.tensor(rng.uniform(0.05, 0.95, GATE_BT),
-                                      dtype=torch.float32),
+        convs=CONVS_GATE, out_size=None,
+        t=torch.tensor(rng.uniform(0.05, 0.95, GATE_BT), dtype=torch.float32),
         z=torch.from_numpy(rng.standard_normal(mel.shape).astype(
             np.float32)))
     _check({'phase': 'quality_gate_step', **entry}, checks)
@@ -4524,7 +4701,8 @@ HAND_KERNELS = ('gn_stats_kernel', 'gn_apply_kernel', 'la_stats_kernel',
                 'la_apply_kernel', 'la_bwd1_kernel', 'la_bwd2_kernel',
                 'la_bwd2_dx_kernel', 'la_bwd2_dw_kernel',
                 'la_jvp_stats_kernel', 'la_jvp_apply_kernel', 'mas_kernel',
-                'la_bwd1_tc_kernel', 'mas_dp_kernel', 'mas_path_kernel')
+                'la_bwd1_tc_kernel', 'mas_dp_kernel', 'mas_path_kernel',
+                'conv3x3_kernel', 'conv3x3_small_kernel')
 
 
 def _family(name):
@@ -4636,6 +4814,7 @@ def main():
     try:
         timed(phase_build)
         stats = timed(phase_kernels, device)
+        conv_row = timed(phase_conv3x3, device)
         ckpt = timed(phase_slice, device)
         timed(phase_samplers_slice, device, ckpt)
         spk_ckpt = timed(phase_speakers_slice, device)
@@ -4714,6 +4893,11 @@ def main():
             'launches_per_path': {p: c[name] for p, c in counts.items()},
             'per': PER[path] if name != 'maximum_path'
             else 'one call at [16, 384, 1024], f32'})
+    # conv3x3 engages on the f32 paths only (bf16 keeps cuDNN's call)
+    path = next(p for p in counts if counts[p]['conv3x3'])
+    kernels.append({**conv_row, 'launches': counts[path]['conv3x3'],
+                    'launches_per_path': {p: c['conv3x3']
+                                          for p, c in counts.items()}})
     emit({'phase_seconds': seconds})
     print(f'# total {time.perf_counter() - t_start:.1f} s', flush=True)
     print(card)

@@ -15,7 +15,9 @@ layout: ``h.permute(0, 2, 3, 1)`` is a contiguous [B, F, T, C] view, which
 the kernels read as [B, N = F*T, C] without a copy. Every ``Block`` ends in
 the GroupNorm+Mish kernel (K1) and every attention is the linear-attention
 kernel pair (K2 + K3), both autograd Functions: the attention's backward is
-the kernel pair K4 + K5, the norm's recomputes its plain version. Parameter
+the kernel pair K4 + K5, the norm's recomputes its plain version. A
+``Block``'s 3x3 convolution in f32 on the card with cuDNN's TF32 off is the
+kernel ``ops.conv3x3``, in both modes. Parameter
 names follow the reference torch
 ``state_dict`` (``downs.0.2.fn.fn.to_qkv.weight``, ...).
 
@@ -36,6 +38,7 @@ from torch import nn
 from gradtts_tpu_torch.models.layers import (Conv2d, ConvTranspose2d,
                                              draw, mish, output_block,
                                              split_apply)
+from gradtts_tpu_torch.ops.conv3x3 import conv3x3, tap_major, use_kernel
 from gradtts_tpu_torch.ops.groupnorm_mish import fits, groupnorm_mish
 from gradtts_tpu_torch.ops.linear_attention import linear_attention_rezero
 from gradtts_tpu_torch.parallel.tensor import (gather_from_model,
@@ -73,7 +76,11 @@ class SinusoidalPosEmb(nn.Module):
 
 class Block(nn.Module):
     """conv3x3 -> masked GroupNorm + Mish (kernel K1); ``block.0`` is the
-    conv and ``block.1`` holds the norm's f32 affine parameters.
+    conv and ``block.1`` holds the norm's f32 affine parameters. The conv
+    is the hand kernel (``ops.conv3x3``) where
+    :func:`~gradtts_tpu_torch.ops.conv3x3.use_kernel` says so (CUDA f32
+    with cuDNN's TF32 off), with its tap-major weight kept on the conv;
+    else cuDNN's (or oneDNN's) call.
 
     With its conv split over the 'model' axis it returns this rank's
     output-channel block: K1 runs on the block with groups / M groups
@@ -94,7 +101,11 @@ class Block(nn.Module):
         split = getattr(conv, 'model_split', None)
         if split is not None:
             return self._split_forward(x, mask, split)
-        h = conv(x * mask).contiguous(memory_format=CL)
+        if use_kernel(x, conv.in_channels, conv.out_channels):
+            h = conv3x3(x, mask, conv.weight, conv.bias,
+                        conv.kept('taps', conv.weight, tap_major))
+        else:
+            h = conv(x * mask).contiguous(memory_format=CL)
         b, _, _, t = mask.shape
         y = groupnorm_mish(h.permute(0, 2, 3, 1), mask.view(b, 1, t, 1),
                            norm.weight, norm.bias, norm.num_groups, norm.eps)
@@ -288,6 +299,19 @@ class GradLogPEstimator2d(nn.Module):
                 Upsample(dim_in)]))
         self.final_block = Block(dim, dim, groups)
         self.final_conv = Conv2d(dim, 1, 1)
+
+    def block_widths(self):
+        """(C_in, C_out, level) of each Block's convolution, in the order
+        they run (25 of them): a level-l Block sees ``n_feats >> l`` rows
+        and ``T >> l`` frames."""
+        top = len(self.downs) - 1
+        levels = ([(d, i) for i, d in enumerate(self.downs)]
+                  + [((self.mid_block1, self.mid_block2), top)]
+                  + [(u, top - i) for i, u in enumerate(self.ups)])
+        blocks = [(b, lv) for group, lv in levels for r in group[:2]
+                  for b in (r.block1, r.block2)] + [(self.final_block, 0)]
+        return [(b.block[0].in_channels, b.block[0].out_channels, lv)
+                for b, lv in blocks]
 
     def forward(self, x, mask, mu, t, spk=None):
         """One evaluation, in the span ``gradtts.unet``; its 25 sub-spans

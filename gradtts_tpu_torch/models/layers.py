@@ -76,7 +76,8 @@ class CastAtUse:
     of the input. Where autograd needs no grad through the cast (no grad
     mode, or a parameter that needs none), the cast copy is kept and reused
     until the parameter changes in place, moves or is replaced, so
-    synthesis casts each weight once rather than at every call."""
+    synthesis casts each weight once rather than at every call;
+    :meth:`kept` keeps any other such copy (a Block's tap-major weight)."""
 
     def cast(self, name: str, dtype: torch.dtype):
         p = getattr(self, name)
@@ -84,11 +85,16 @@ class CastAtUse:
             return p
         if torch.is_grad_enabled() and p.requires_grad:
             return p.to(dtype)
-        key = (dtype, p.device, p.data_ptr(), p._version)
+        return self.kept(name, p, lambda q: q.to(dtype), dtype)
+
+    def kept(self, slot: str, p: torch.Tensor, make, *key):
+        """``make(p.detach())``, kept in ``slot`` and reused until ``p``
+        changes in place, moves or is replaced, or ``key`` changes."""
+        key = (*key, p.device, p.data_ptr(), p._version)
         kept = self.__dict__.setdefault('_casts', {})
-        hit = kept.get(name)
+        hit = kept.get(slot)
         if hit is None or hit[0] != key:
-            hit = kept[name] = (key, p.detach().to(dtype))
+            hit = kept[slot] = (key, make(p.detach()))
         return hit[1]
 
 

@@ -45,6 +45,11 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 # argtypes of every C entry point, by library
 SIGNATURES = {
+    'conv3x3': {
+        # x, mask, w (tap-major), bias (NULL: none), y, B, F, T, C_in,
+        # C_out, stream
+        'gtt_conv3x3': (_P,) * 5 + (_I,) * 5 + (_P,),
+    },
     'groupnorm_mish': {
         # x, part, B, N, C, chunk, tiles, groups, dtype, stream
         'gtt_gn_stats': (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P),

@@ -23,6 +23,7 @@ from gradtts_tpu_torch.cli.nbest import main as nbest_main
 from gradtts_tpu_torch.config import get_config
 from gradtts_tpu_torch.models.tts import GradTTS, compute_loss, synthesize
 from gradtts_tpu_torch.nbest.scoring import score_batch
+from gradtts_tpu_torch.ops import conv3x3 as tc3
 from gradtts_tpu_torch.ops import groupnorm_mish as tgn
 from gradtts_tpu_torch.ops import linear_attention as tla
 from gradtts_tpu_torch.ops import mas as tmas
@@ -158,7 +159,7 @@ def test_cpu_path_launches_no_kernel():
     counters = (tgn.groupnorm_mish, tla.attention_stats, tla.attention_apply,
                 tla.attention_bwd_sweep1, tla.attention_bwd_sweep2,
                 tla.attention_jvp_stats, tla.attention_jvp_apply,
-                tmas.maximum_path)
+                tmas.maximum_path, tc3.conv3x3)
     before = [c.launches for c in counters]
     res = synthesize(model, torch.randint(1, N_VOCAB, (1, 8)),
                      torch.tensor([8]), n_timesteps=2, y_max_length=32)

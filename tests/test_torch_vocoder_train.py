@@ -387,6 +387,11 @@ def test_train_vocoder_cli_fine_tunes_from_a_generator(wavs, tmp_path):
     cfg = th.HiFiGANConfig.from_json(dict(TINY, **MEL_KW))
     config = tmp_path / 'tiny.json'
     config.write_text(json.dumps(dict(TINY, **MEL_KW)))
+    # drawn from a seed of its own (init_vocoder_state draws from 1234),
+    # not from whatever state the tests before it left the global
+    # generator in: a one-value bias drawn so came within 0.0051 of the
+    # seeded draw's
+    torch.manual_seed(0)
     init = th.Generator(cfg).state_dict()
     torch.save({'generator': init}, tmp_path / 'g.pt')
     state = train_vocoder_main([

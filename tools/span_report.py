@@ -2,7 +2,9 @@
 each kernel's launch lay (stage, U-Net sub-span, inside K1's tangent or
 not), the counts of the spans a call, the top-level spans' share of the
 device time, the longest idle gaps named by the span the host was in, and
-the seconds that reading the spans takes.
+the idle time summed by that span, the Python garbage collections that
+ran on the host while the card idled, and the seconds that reading the
+spans takes.
 
     python3 tools/span_report.py --workload W --seed N [--seconds 10]
         [--root CHECKOUT] [--out spans_W.json]
@@ -15,6 +17,7 @@ GPU, as the harness does.
 """
 
 import argparse
+import gc
 import json
 import os
 import re
@@ -29,6 +32,7 @@ CLASSES = {
     'elementwise': re.compile(r'elementwise'),
     'cf32_gemm': re.compile(r'gemm_cf32'),
     'fft_other': re.compile(r'fft|complex|region_transform', re.I),
+    'conv3x3': re.compile(r'conv3x3'),
 }
 K1_TANGENT = 'gradtts.unet.k1_tangent'
 STAGE_OF = ('gradtts.encoder', 'gradtts.align', 'gradtts.decoder',
@@ -69,9 +73,10 @@ def group_of(chain):
     return (stage, parts[-1] if parts else '', K1_TANGENT in chain)
 
 
-def tables(trace, spans):
+def tables(trace, spans, collections=()):
     """The breakdown of one traced window (``spans``: the benchmark's
-    ``benchmark/spans.py`` module)."""
+    ``benchmark/spans.py`` module; ``collections``: the host's garbage
+    collections, (generation, start s, end s))."""
     found, index = spans.read_trace(trace)
     roots = [r for r in spans.ROOTS.values() if r in found]
     calls = sum(len(found[r]) for r in roots)
@@ -116,22 +121,48 @@ def tables(trace, spans):
             for n in spans.NAMES if n in found},
         'groups_per_call': rows,
         'unlinked_ms_per_call': unlinked,
-        'idle_gaps': idle_gaps(trace, spans, by_chain),
+        **idle_gaps(trace, spans, by_chain, collections),
     }
 
 
-def idle_gaps(trace, spans, by_chain, top=10):
-    """The longest gaps between device operations: seconds, the span the
-    host was in as the gap began, and the one that launched the operation
-    that ended it."""
+def idle_gaps(trace, spans, by_chain, collections=(), top=10):
+    """The longest gaps between device operations (``idle_gaps``): seconds,
+    the span the host was in as the gap began, the one that launched the
+    operation that ended it, and the garbage collections (generation, ms)
+    that ran on the host between the gap's start and that launch. Beside
+    them, every gap's idle time summed by the span the host was in as it
+    began (``idle_ms_by_span``), and the idle time of the gaps that such a
+    collection overlapped (``idle_ms_in_gc``), with the collections' time
+    inside the window by generation (``gc_ms_by_generation``)."""
     corr_of = {(n, s): c for c, (n, s, _) in trace.kernel_corr.items()}
     gaps, end, prev = [], None, None
-    for name, s, e in sorted(trace.device_ops, key=lambda o: o[1]):
+    ops = sorted(trace.device_ops, key=lambda o: o[1])
+    for name, s, e in ops:
         if end is not None and s > end:
             gaps.append((s - end, end, prev, name, corr_of.get((name, s))))
         if end is None or e > end:
             end, prev = e, name
     gaps.sort(key=lambda g: -g[0])
+
+    def host_until(at, corr):
+        launch = trace.launches.get(corr)
+        return launch[1] if launch else at
+
+    def collected(a, b):
+        return [(g, 1e3 * (e - s)) for g, s, e in collections
+                if s < b and e > a]
+
+    by_span, in_gc = {}, 0.0
+    for gap, at, _, _, corr in gaps:
+        name = spans.innermost_span(trace, at) or '(no span)'
+        by_span[name] = by_span.get(name, 0.0) + 1e3 * gap
+        if collected(at, max(host_until(at, corr), at + gap)):
+            in_gc += 1e3 * gap
+    lo, hi = (ops[0][1], end) if ops else (0.0, 0.0)
+    gc_ms = {}
+    for g, s, e in collections:
+        if s < hi and e > lo:
+            gc_ms[g] = gc_ms.get(g, 0.0) + 1e3 * (min(e, hi) - max(s, lo))
     out = []
     for gap, at, before, after, corr in gaps[:top]:
         launch = trace.launches.get(corr)
@@ -142,8 +173,12 @@ def idle_gaps(trace, spans, by_chain, top=10):
                                if launch else None),
             'launch_chain': list(by_chain.get(corr, ())),
             'before': before[:64], 'after': after[:64],
-            'host_call': launch[0] if launch else None})
-    return out
+            'host_call': launch[0] if launch else None,
+            'gc': collected(at, host_until(at, corr))})
+    return {'idle_gaps': out,
+            'idle_ms_by_span': dict(sorted(by_span.items(),
+                                           key=lambda kv: -kv[1])),
+            'idle_ms_in_gc': in_gc, 'gc_ms_by_generation': gc_ms}
 
 
 def main(argv=None):
@@ -170,7 +205,22 @@ def main(argv=None):
         return kept['trace']
 
     trace_mod.read = keeping
-    result = run.run_cell(args.workload, args.seed, args.seconds, trace=True)
+    collections, started = [], {}
+
+    def on_gc(phase, info):
+        # on the profiler's clock (Unix time, as the program's spans)
+        if phase == 'start':
+            started['t'] = time.time_ns()
+        elif 't' in started:
+            collections.append((info['generation'], started.pop('t') * 1e-9,
+                                time.time_ns() * 1e-9))
+
+    gc.callbacks.append(on_gc)
+    try:
+        result = run.run_cell(args.workload, args.seed, args.seconds,
+                              trace=True)
+    finally:
+        gc.callbacks.remove(on_gc)
     print(json.dumps({k: v for k, v in result.items()
                       if k != 'diagnostics'}), flush=True)
     trace = kept['trace']
@@ -185,7 +235,8 @@ def main(argv=None):
         run.metric_reader(name)(runs)
     timing['span_readers_s'] = time.perf_counter() - t0
     report = {'workload': args.workload, 'seed': args.seed,
-              'root': root, 'timing': timing, **tables(trace, spans)}
+              'root': root, 'timing': timing,
+              **tables(trace, spans, collections)}
     text = json.dumps(report)
     print(text, flush=True)
     if out:
