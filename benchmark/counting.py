@@ -3,10 +3,12 @@ operations of each hand kernel's work as functions of its shape, and the
 model FLOPs of a call.
 
 The kernel arithmetic is ``chip_smoke.py``'s (``bound``, ``_timed`` and the
-``work`` table of ``phase_kernels``), copied so that a later change to the
-program cannot move the yardstick. One departure: K6's outputs count one
-split a batch item (as K2's do), not the program's tiling, so the bound
-does not follow the program's choice of splits.
+``work`` table of ``phase_kernels``; the Block convolution's as
+``phase_conv3x3`` counts it), copied so that a later change to the program
+cannot move the yardstick. One departure: K6's outputs count one split a
+batch item (as K2's do), not the program's tiling, so the bound does not
+follow the program's choice of splits. The U-Net's Block convolutions are
+listed here from ``dec_dim`` and the speakers, not read from the program.
 
 Model FLOPs are counted by ``torch.utils.flop_counter.FlopCounterMode``
 over the plain reference on the meta device (convolutions and matrix
@@ -35,6 +37,7 @@ KERNEL_FAMILIES = {
     'K6': ('la_jvp_stats_kernel',),
     'K7': ('la_jvp_apply_kernel',),
     'MAS': ('mas_kernel', 'mas_dp_kernel', 'mas_path_kernel'),
+    'conv3x3': ('conv3x3_kernel', 'conv3x3_small_kernel'),
 }
 
 
@@ -83,6 +86,43 @@ def mas_work(B, Tx, Ty, valid_cells):
     """(bytes, flops, peak) of one MAS launch over [B, Tx, Ty], of which
     ``valid_cells`` lie inside the masks."""
     return 3 * B * Tx * Ty * 4, 4 * valid_cells, PEAK_FLOPS['float32']
+
+
+def conv3x3_work(B, F, T, c_in, c_out):
+    """(bytes, flops, peak FLOP/s) of one launch of the Block convolution
+    (3x3, stride 1, padding 1, f32) of [B, c_in, F, T] to [B, c_out, F, T]
+    under the time mask [B, T]: a multiply-add for each of 9 c_in taps of
+    each output, and each element of the input, output, mask, weight and
+    bias moved once."""
+    return (4 * (B * F * T * (c_in + c_out) + B * T + 9 * c_in * c_out
+                 + c_out), 18 * B * F * T * c_in * c_out,
+            PEAK_FLOPS['float32'])
+
+
+def unet_blocks(dim, n_spks):
+    """(C_in, C_out, level) of the score U-Net's 25 Block convolutions a
+    pass, in the order they run, for dim_mults (1, 2, 4): two ResnetBlocks
+    of two Blocks at each down level, the first from the 2 input channels
+    (mu, x) or 3 (with the speaker), four in the middle, two ResnetBlocks
+    at each up level (the first from the skip's concatenation), and the
+    final Block. A level-l Block sees ``n_feats >> l`` rows and ``T >> l``
+    frames."""
+    dims = [3 if n_spks > 1 else 2, dim, 2 * dim, 4 * dim]
+    out = []
+    for level, (a, b) in enumerate(zip(dims[:-1], dims[1:])):
+        out += [(a, b, level)] + [(b, b, level)] * 3
+    out += [(4 * dim, 4 * dim, 2)] * 4
+    for level, (a, b) in ((2, (2 * dim, 4 * dim)), (1, (dim, 2 * dim))):
+        out += [(2 * b, a, level)] + [(a, a, level)] * 3
+    return out + [(dim, dim, 0)]
+
+
+def conv3x3_bound_s(B, n_feats, T, dim, n_spks, calls=1):
+    """Least seconds of the Block convolutions of ``calls`` U-Net passes
+    at [B, T]."""
+    return calls * sum(
+        bound_s(*conv3x3_work(B, n_feats >> level, T >> level, a, b))
+        for a, b, level in unet_blocks(dim, n_spks))
 
 
 def unet_levels(n_feats, T, dim):

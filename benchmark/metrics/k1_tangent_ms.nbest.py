@@ -1,7 +1,8 @@
 """Device ms a call of the kernels launched in the program's
 ``gradtts.unet.k1_tangent`` spans (K1's plain forward-mode tangent)."""
-from benchmark.spans import K1_TANGENT, per_call_ms
+from benchmark.drives.gradtts import K1_TANGENT
+from benchmark.spans import per_call_ms
 
 
 def read(run):
-    return per_call_ms(run, K1_TANGENT, 'nbest')
+    return per_call_ms(run, K1_TANGENT)

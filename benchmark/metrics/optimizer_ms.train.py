@@ -1,7 +1,8 @@
 """Device ms a step of the kernels launched in the program's
 ``gradtts.train.optimizer`` span (clip and Adam)."""
-from benchmark.spans import OPTIMIZER, per_call_ms
+from benchmark.drives.gradtts import OPTIMIZER
+from benchmark.spans import per_call_ms
 
 
 def read(run):
-    return per_call_ms(run, OPTIMIZER, 'train')
+    return per_call_ms(run, OPTIMIZER)

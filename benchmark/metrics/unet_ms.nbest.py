@@ -1,3 +1,8 @@
 """Device ms an evaluation of the score U-Net: the kernels launched in the
 program's ``gradtts.unet`` spans over the count of those spans."""
-from benchmark.spans import unet_ms as read  # noqa: F401
+from benchmark.drives.gradtts import UNET
+from benchmark.spans import per_span_ms
+
+
+def read(run):
+    return per_span_ms(run, UNET)

@@ -1,8 +1,8 @@
 """Device ms a call of the HiFi-GAN generator's kernels, launched inside
-the benchmark's ``benchmark.vocoder`` span."""
-from benchmark.drives import VOCODER_SPAN
-from benchmark.readers import span_ms
+the program's ``gradtts.vocoder`` span (``models/hifigan.py``)."""
+from benchmark.drives.gradtts import VOCODER
+from benchmark.spans import per_call_ms
 
 
 def read(run):
-    return span_ms(run, VOCODER_SPAN)
+    return per_call_ms(run, VOCODER)

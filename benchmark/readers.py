@@ -10,8 +10,6 @@ import glob
 import os
 import re
 
-from benchmark import counting
-
 # a CUDA entry: __global__ void [__launch_bounds__(...)] name(
 _ENTRY = re.compile(r'__global__\s+void\s+(?:__launch_bounds__\s*\('
                     r'(?:[^()]|\([^()]*\))*\)\s*)?(\w+)\s*\(')
@@ -48,8 +46,9 @@ def mfu(run):
 
 def kernel_roofline(run):
     """The least time of the hand kernels' work over their device time, in
-    %: the frozen bound of each kernel family that ran, times the calls,
-    over the traced time of every kernel of the program's sources."""
+    %: the frozen bound of each kernel family that ran (the drive's
+    ``kernel_families``: {family: entry names}), times the calls, over the
+    traced time of every kernel of the program's sources."""
     if run.trace is None:
         return None
     entries = program_kernel_names()
@@ -59,9 +58,9 @@ def kernel_roofline(run):
     spent = sum(t for n, t in by_name.items() if _matches(n, entries))
     if not spent:
         return None
+    families = run.drive.kernel_families
     bound = sum(v for fam, v in run.drive.kernel_bound_per_call().items()
-                if any(_matches(n, counting.KERNEL_FAMILIES[fam])
-                       for n in by_name))
+                if any(_matches(n, families[fam]) for n in by_name))
     return 100.0 * bound * run.trace.calls / spent
 
 
@@ -70,12 +69,3 @@ def launches_per_call(run):
     if run.trace is None or not run.trace.kernels:
         return None
     return len(run.trace.kernels) / run.trace.calls
-
-
-def span_ms(run, span):
-    """Device ms a call of the kernels launched inside the benchmark's span
-    ``span``."""
-    if run.trace is None or span not in run.trace.spans:
-        return None
-    spent = run.trace.span_kernel_s(span)
-    return 1e3 * spent / run.trace.calls if spent else None

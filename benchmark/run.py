@@ -15,7 +15,9 @@ else its end-to-end ones.
 
 Everything a cell is made of is found by name: the workload's
 configuration (``configs/<config>.json``), traffic (``traffic/<traffic>
-.json``), limits (``limits/<workload>.json``) and each metric's reader
+.json``), limits (``limits/<workload>.json``), the traffic's drive
+(``drives/<drive>.py``), the configuration's reference (its ``reference``
+key, a file of ``reference/``) and each metric's reader
 (``metrics/<metric>.py``). Build and kernel caches stay inside the
 checkout, under ``build/``.
 """
@@ -43,8 +45,7 @@ for var, sub in (('TRITON_CACHE_DIR', 'triton'),
 
 import torch  # noqa: E402
 
-from benchmark import imports, trace as trace_mod  # noqa: E402
-from benchmark.drives import DRIVES, VOCODER_SPAN  # noqa: E402
+from benchmark import drives, imports, trace as trace_mod  # noqa: E402
 from benchmark.traffic import load_traffic  # noqa: E402
 
 
@@ -72,6 +73,27 @@ def cell_metrics(manifest, workload, kind):
     reports: those listing it, and those that list no workloads."""
     return [m for m in manifest[kind]
             if workload in m.get('workloads', [workload])]
+
+
+def load_cell(workload, sizes=None, traffic_sizes=None, manifest=None):
+    """(workload entry, configuration, traffic, limits) of a cell;
+    ``sizes`` and ``traffic_sizes`` narrow the configuration and the
+    traffic (CPU tests only)."""
+    manifest = manifest or load_manifest()
+    cell = next(w for w in manifest['workloads'] if w['name'] == workload)
+    cfg = dict(load_json('configs', f"{cell['config']}.json"), **(sizes or {}))
+    tr = dict(load_traffic(cell['traffic']), **(traffic_sizes or {}))
+    return cell, cfg, tr, load_json('limits', f'{workload}.json')
+
+
+def judge(numbers, limits):
+    """({name: {'value', 'limit'}}, correct) of the check's numbers: correct
+    where each has a limit and is finite and within it."""
+    compared = {k: {'value': v, 'limit': limits.get(k)}
+                for k, v in numbers.items()}
+    return compared, all(
+        c['limit'] is not None and math.isfinite(c['value'])
+        and c['value'] <= c['limit'] for c in compared.values())
 
 
 @dataclass
@@ -111,14 +133,12 @@ def run_cell(workload, seed, seconds, trace=False, device='cuda',
     check). ``sizes`` and ``traffic_sizes`` narrow the configuration and
     the traffic (CPU tests only)."""
     manifest = manifest or load_manifest()
-    cell = next(w for w in manifest['workloads'] if w['name'] == workload)
-    cfg = dict(load_json('configs', f"{cell['config']}.json"), **(sizes or {}))
-    tr = dict(load_traffic(cell['traffic']), **(traffic_sizes or {}))
-    limits = load_json('limits', f'{workload}.json')
+    cell, cfg, tr, limits = load_cell(workload, sizes, traffic_sizes,
+                                      manifest)
     if cfg['precision'] == 'float32':
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    drive = DRIVES[tr['drive']](cfg, tr, seed, device)
+    drive = drives.load(tr['drive'])(cfg, tr, seed, device)
     drive.setup(sizes or {})
     _sync(device)
     setup_s = time.perf_counter() - T0
@@ -134,8 +154,7 @@ def run_cell(workload, seed, seconds, trace=False, device='cuda',
             activities.append(torch.profiler.ProfilerActivity.CUDA)
         with torch.profiler.profile(activities=activities) as prof:
             traced_calls, traced_s = window(drive, seconds, calls, device)
-        traced = trace_mod.read(prof, traced_s, traced_calls,
-                                spans=(VOCODER_SPAN,))
+        traced = trace_mod.read(prof, traced_s, traced_calls)
         del prof
         print(f'trace: {len(traced.kernels)} kernels, {traced.linked()} '
               'linked to their launch', file=sys.stderr)
@@ -165,13 +184,8 @@ def run_cell(workload, seed, seconds, trace=False, device='cuda',
         torch.cuda.empty_cache()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    numbers = drive.check()
-    compared = {k: {'value': v, 'limit': limits.get(k)}
-                for k, v in numbers.items()}
-    result['correct'] = all(
-        c['limit'] is not None and math.isfinite(c['value'])
-        and c['value'] <= c['limit'] for c in compared.values())
-    result['compared'] = compared
+    compared, result['correct'] = judge(drive.check(), limits)
+    result['compared'] = compared     # last in the line: the numbers checked
     result['diagnostics'] = drive.diagnostics
     return result
 

@@ -1,49 +1,32 @@
-"""The program's own spans in a traced window: the names the benchmark
-reads (the program's ``utils/profiling.py SPANS`` holds each), the device
-time of the kernels launched inside a span, and the span the host was in
-at a given time.
+"""The program's own spans in a traced window: the device time of the
+kernels launched inside a span, over the calls (the drive's root span) or
+over the span's own count, and the span the host was in at a given time.
 
 The program keeps each span it opened under a capture in
 ``utils/profiling.py RECORDED``, on the clock of the profiler's events;
-``program_spans`` takes those of the traced window. A kernel belongs to a
-span when the host runtime call that launched it (``Trace.launches``, by
-correlation id) lies inside one of the span's intervals. The backward pass
-launches from autograd's own thread while the main thread is inside
-``gradtts.train.backward``, so matching by time covers it. A program
-without these spans (an older checkout) records none: every reader then
-returns None.
+``program_spans`` takes every span of the traced window, whatever its
+name, so a span that the program adds is readable at once. The names a
+metric reads belong to its drive (``drives/gradtts.py`` for Grad-TTS). A
+kernel belongs to a span when the host runtime call that launched it
+(``Trace.launches``, by correlation id) lies inside one of the span's
+intervals. The backward pass launches from autograd's own thread while
+the main thread is inside its span, so matching by time covers it. A
+program without these spans (an older checkout) records none: every
+reader then returns None.
 """
 
 import bisect
 
 import numpy as np
 
-# the roots: one a call of each drive
-ROOTS = {'synth': 'gradtts.synthesize', 'nbest': 'gradtts.score',
-         'train': 'gradtts.train_step'}
-ENCODER = 'gradtts.encoder'
-ALIGN = 'gradtts.align'
-UNET = 'gradtts.unet'
-K1_TANGENT = 'gradtts.unet.k1_tangent'
-BACKWARD = 'gradtts.train.backward'
-OPTIMIZER = 'gradtts.train.optimizer'
-# every span the readers take: those the metrics read, and the rest for
-# the breakdown by span (innermost_span)
-NAMES = (*ROOTS.values(), ENCODER, ALIGN, 'gradtts.decoder',
-         'gradtts.likelihood', UNET, 'gradtts.unet.embed',
-         'gradtts.unet.resnet', 'gradtts.unet.attention',
-         'gradtts.unet.resample', 'gradtts.unet.out', K1_TANGENT,
-         'gradtts.train.forward', BACKWARD, OPTIMIZER, 'gradtts.vocoder')
-
-
 _read = [None, None]     # the trace last read, and its spans and index
 
 
 def program_spans(trace):
-    """{name: [(start, end), ...]} in seconds of the program's spans (of
-    ``NAMES``) open during the trace's launches, or {} where the program
-    recorded none or its record no longer reaches back to the window's
-    start."""
+    """{name: [(start, end), ...]} in seconds of every span the program
+    recorded that was open during the trace's launches, or {} where the
+    program recorded none or its record no longer reaches back to the
+    window's start."""
     from gradtts_tpu_torch.utils import profiling
     record = getattr(profiling, 'RECORDED', None)
     times = [at for _, at in trace.launches.values()]
@@ -56,7 +39,7 @@ def program_spans(trace):
     out = {}
     for name, a, b in kept:
         a, b = a * 1e-9, b * 1e-9
-        if name in NAMES and b >= lo and a <= hi:
+        if b >= lo and a <= hi:
             out.setdefault(name, []).append((a, b))
     return out
 
@@ -95,9 +78,8 @@ def launch_index(trace):
 
 def kernel_s(index, intervals):
     """Device seconds of the kernels launched inside ``intervals`` (launch
-    time in [start, end] of one, as ``Trace.span_kernel_s`` reads a span),
-    found by bisection: O((kernels + intervals) log kernels). ``index``:
-    ``launch_index(trace)``."""
+    time in [start, end] of one), found by bisection: O((kernels +
+    intervals) log kernels). ``index``: ``launch_index(trace)``."""
     at, cum = index
     ivs = np.array(_union(intervals), np.float64)
     if not len(ivs):
@@ -107,40 +89,38 @@ def kernel_s(index, intervals):
     return float((cum[hi] - cum[lo]).sum())
 
 
-def per_call_ms(run, span, drive):
-    """Device ms of ``span``'s kernels over the calls of ``drive`` ('synth',
-    'nbest' or 'train'), counted as its root spans in the trace."""
+def _ms_over(run, span, count):
     if run.trace is None:
         return None
     found, index = read_trace(run.trace)
-    calls = len(found.get(ROOTS[drive], ()))
-    if not calls or span not in found:
+    n = len(found.get(count, ()))
+    if not n or span not in found:
         return None
     spent = kernel_s(index, found[span])
-    return 1e3 * spent / calls if spent else None
+    return 1e3 * spent / n if spent else None
 
 
-def unet_ms(run):
-    """Device ms of an evaluation of the score U-Net: the kernels in
-    ``gradtts.unet`` over the count of its spans."""
-    if run.trace is None:
-        return None
-    found, index = read_trace(run.trace)
-    if not found.get(UNET):
-        return None
-    spent = kernel_s(index, found[UNET])
-    return 1e3 * spent / len(found[UNET]) if spent else None
+def per_call_ms(run, span):
+    """Device ms of ``span``'s kernels over the calls, counted as the
+    drive's root spans (``run.drive.root_span``) in the trace."""
+    return _ms_over(run, span, run.drive.root_span)
+
+
+def per_span_ms(run, span):
+    """Device ms of ``span``'s kernels over the count of its own spans (an
+    evaluation of a part that a call runs many times)."""
+    return _ms_over(run, span, span)
 
 
 def innermost_span(trace, t):
-    """The deepest program span (of ``NAMES``) that was open on the host at
-    time ``t``, or None: of the intervals holding ``t``, the one that
-    started last, or of two that started together the one that ended
-    first (spans nest by call)."""
+    """The deepest program span that was open on the host at time ``t``,
+    or None: of the intervals holding ``t``, the one that started last, or
+    of two that started together the one that ended first (spans nest by
+    call)."""
     found = read_trace(trace)[0]
     best, best_key = None, None
-    for name in NAMES:
-        ivs = sorted(found.get(name, []))
+    for name, intervals in found.items():
+        ivs = sorted(intervals)
         i = bisect.bisect_right(ivs, (t, float('inf'))) - 1
         # intervals of one name do not nest: the last start at or before
         # t is the only one of this name that may hold it

@@ -3,7 +3,7 @@
 import pytest
 import torch
 
-from benchmark import counting
+from benchmark import counting, drives, run
 from benchmark.reference import gradtts as ref
 
 
@@ -55,3 +55,57 @@ def test_jvp_counts_a_weight_product_twice():
     assert 2 * fwd < jvp < 3 * fwd
     assert counting.unet_flops(m, 2, 64, 'train') == pytest.approx(
         3 * fwd, rel=0.05)
+
+
+def test_conv3x3_work_by_hand():
+    # n-best's 64 -> 64 top level, B 50 x 80 x 512: 18 B F T C_in C_out
+    nbytes, flops, peak = counting.conv3x3_work(50, 80, 512, 64, 64)
+    assert flops == 18 * 50 * 80 * 512 * 64 * 64
+    assert flops / 1e9 == pytest.approx(151.0, abs=0.05)
+    assert nbytes == 4 * (50 * 80 * 512 * 128 + 50 * 512 + 9 * 64 * 64 + 64)
+    assert peak == 67e12
+    assert 1e3 * counting.bound_s(nbytes, flops, peak) == pytest.approx(
+        2.254, abs=5e-4)
+    assert counting.KERNEL_FAMILIES['conv3x3'] == ('conv3x3_kernel',
+                                                   'conv3x3_small_kernel')
+
+
+@pytest.mark.parametrize('n_spks', [1, 675])
+def test_unet_blocks_are_the_programs(n_spks):
+    """The yardstick's list, written from dec_dim and the speakers, against
+    the program's own table of its Blocks."""
+    from gradtts_tpu_torch.models.diffusion import GradLogPEstimator2d
+    program = GradLogPEstimator2d(64, n_spks=n_spks,
+                                  spk_emb_dim=128).block_widths()
+    assert counting.unet_blocks(64, n_spks) == program
+    assert len(program) == 25 and program[0][0] == (3 if n_spks > 1 else 2)
+
+
+@pytest.mark.parametrize('B, T, smoke_ms', [(50, 512, 41.80),
+                                            (32, 768, 40.13)])
+def test_conv3x3_bound_of_a_unet_pass_is_the_smokes(B, T, smoke_ms):
+    """The 25 Blocks' bound a pass of the n-best and generate cells
+    against the sum that ``chip_smoke.py phase_conv3x3`` printed (PERF.md
+    §6): within 2%."""
+    got = 1e3 * counting.conv3x3_bound_s(B, 80, T, 64, 675)
+    assert got == pytest.approx(smoke_ms, rel=0.02)
+
+
+@pytest.mark.parametrize('workload, passes', [
+    ('tedlium-spk-nbest-b50', 2), ('tedlium-spk-generate-b32', 1),
+    ('ljspeech-synth-b32', 0), ('ljspeech-train-b128', 0)])
+def test_drives_bound_the_block_convolutions_in_f32_only(workload, passes):
+    """A call's conv3x3 bound: 25 Blocks an evaluation, twice in forward
+    mode (n-best), once in synthesis, at the cell's batch and frames; none
+    in a bf16 cell, which never runs the kernel."""
+    _, cfg, tr, _ = run.load_cell(workload, traffic_sizes={'batches': 1})
+    drive = drives.load(tr['drive'])(cfg, tr, 5, 'cpu')
+    drive.prepare()
+    bounds = drive.kernel_bound_per_call()
+    assert set(bounds) <= set(drive.kernel_families)
+    if not passes:
+        assert 'conv3x3' not in bounds
+        return
+    B, T = ((50, 512) if passes == 2 else (32, 768))
+    assert bounds['conv3x3'] == pytest.approx(
+        passes * 10 * counting.conv3x3_bound_s(B, 80, T, 64, 675))

@@ -1,6 +1,7 @@
 """Reads a ``torch.profiler`` capture of the measured window: device
-activity (kernels, copies, sets), the host's runtime calls that launched
-them, and the benchmark's own ``record_function`` spans.
+activity (kernels, copies, sets) and the host's runtime calls that
+launched them. The program's spans are read from its own record
+(``spans.py``).
 
 Only the profiler's in-memory events are read (nothing is written to
 disk). Times are seconds; a device interval is [start, end) of one
@@ -25,7 +26,6 @@ class Trace:
     launches: Dict[int, Tuple[str, float]] = field(default_factory=dict)
     kernel_corr: Dict[int, Tuple[str, float, float]] = field(
         default_factory=dict)
-    spans: Dict[str, List[Tuple[float, float]]] = field(default_factory=dict)
 
     def busy_s(self):
         """Seconds in which an operation ran on the device: the union of
@@ -69,51 +69,34 @@ class Trace:
         """The kernels whose launching host call the trace holds."""
         return sum(c in self.launches for c in self.kernel_corr)
 
-    def span_kernel_s(self, span):
-        """Device seconds of the kernels whose launch lies inside a host
-        span named ``span``."""
-        ranges = sorted(self.spans.get(span, []))
-        total = 0.0
-        for corr, (_, s, e) in self.kernel_corr.items():
-            host = self.launches.get(corr)
-            if host and any(a <= host[1] <= b for a, b in ranges):
-                total += e - s
-        return total
-
 
 def short(name):
     """A name of at most 64 characters with no space."""
     return re.sub(r'[^A-Za-z0-9_.:<>,-]+', '_', name)[:NAME_CHARS]
 
 
-def _kind(ev, spans):
-    """'kernel', 'copy', 'runtime', 'span' or None for a profiler event:
-    by its activity type where the event has one, else by its device and
-    name (the card's own copy of a host span is none of these)."""
+def _kind(ev):
+    """'kernel', 'copy', 'runtime' or None for a profiler event: by its
+    activity type where the event has one, else by its device and name."""
     kind = getattr(ev, 'activity_type', None)
     if kind is not None:
         return {'kernel': 'kernel', 'gpu_memcpy': 'copy',
                 'gpu_memset': 'copy', 'cuda_runtime': 'runtime',
-                'cuda_driver': 'runtime'}.get(
-            kind(), 'span' if kind() == 'user_annotation' else None)
-    name = ev.name()
+                'cuda_driver': 'runtime'}.get(kind())
     if ev.device_type() == DeviceType.CUDA:
-        if name in spans:
-            return None
-        return 'copy' if name.startswith(('Memcpy', 'Memset')) else 'kernel'
-    if name.startswith('cu'):
-        return 'runtime'
-    return 'span' if name in spans else None
+        return 'copy' if ev.name().startswith(('Memcpy', 'Memset')) \
+            else 'kernel'
+    return 'runtime' if ev.name().startswith('cu') else None
 
 
-def read(prof, window_s, calls, spans=()):
+def read(prof, window_s, calls):
     """The :class:`Trace` of a finished ``torch.profiler.profile`` over a
     window of ``window_s`` seconds and ``calls`` calls."""
     tr = Trace(window_s, calls)
     for ev in prof.profiler.kineto_results.events():
         start = ev.start_ns() * 1e-9
         end = start + ev.duration_ns() * 1e-9
-        name, kind = ev.name(), _kind(ev, spans)
+        name, kind = ev.name(), _kind(ev)
         if kind in ('kernel', 'copy'):
             tr.device_ops.append((name, start, end))
         if kind == 'kernel':
@@ -121,6 +104,4 @@ def read(prof, window_s, calls, spans=()):
             tr.kernel_corr[ev.correlation_id()] = (name, start, end)
         elif kind == 'runtime':
             tr.launches[ev.correlation_id()] = (name, start)
-        elif kind == 'span' and name in spans:
-            tr.spans.setdefault(name, []).append((start, end))
     return tr
